@@ -1,0 +1,100 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and bind them
+with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
+library with a plain C interface (no PyTorch headers, so one source builds
+in seconds). The hash covers the source and the flags, so an edited source
+rebuilds and an unchanged one is loaded as built. ``build_all`` starts one
+``nvcc`` per source together and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              # no contracted multiply-adds: the kernels keep the rounding
+              # of the reference expressions (and no --use_fast_math)
+              "-fmad=false"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every exported launch function: (argtypes, restype)
+SIGNATURES = {
+    "augment": {
+        "fused_crop_mirror_normalize_launch": (
+            [_P, _P, _P] + [_I] * 5 + [_F] * 6 + [_I] * 5 + [_P], _I),
+    },
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                           "kernels are built from source at first use")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library exists; returns
+    (process, temporary output, final path) or None."""
+    out = _library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp: Path, out: Path) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+
+
+def build_all(names: List[str] = None) -> Dict[str, Path]:
+    """Build every listed kernel source (default: all of ``csrc/``), one
+    ``nvcc`` each, all started together. Returns name -> library path."""
+    names = sorted(SIGNATURES) if names is None else names
+    started = {name: _start_build(name) for name in names}
+    for name, job in started.items():
+        if job is not None:
+            _finish_build(name, *job)
+    return {name: _library_path(name) for name in names}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, with every exported
+    function's argtypes and restype declared."""
+    lib = ctypes.CDLL(str(build_all([name])[name]))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib

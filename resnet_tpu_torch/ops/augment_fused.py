@@ -1,0 +1,210 @@
+"""The fused augmentation kernel's wrapper, its plain version, and the
+ImageNet train-time augmenter built on it.
+
+Port of ``resnet_tpu/ops/augment_pallas.py``. The kernel
+(``csrc/augment.cu``) takes a uint8 NHWC canvas and one float32 row of 12
+per-image values, ``y0, x0, ch, cw, flip, vh, vw, dh, ds, dl, alpha,
+beta``, and emits the normalized crop. Randomness is drawn outside it,
+from an explicit ``torch.Generator``, so a test can hand the kernel the
+values the JAX samplers drew.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from resnet_tpu_torch.config import DTYPES, Config, DataConfig
+from resnet_tpu_torch.ops.augment import (_rgb_to_hsl_adjust,
+                                          crop_resize_bilinear,
+                                          finish_normalize,
+                                          sample_boxes_canvas)
+
+ROW_LEN = 12
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_args(canvas_u8: torch.Tensor, rows: torch.Tensor,
+                out_hw: Tuple[int, int], dtype, s2d: bool) -> None:
+    if canvas_u8.dtype != torch.uint8 or canvas_u8.ndim != 4 \
+            or canvas_u8.shape[-1] != 3:
+        raise ValueError("canvas must be uint8 (N, H, W, 3), got "
+                         f"{canvas_u8.dtype} {tuple(canvas_u8.shape)}")
+    n = canvas_u8.shape[0]
+    if rows.dtype != torch.float32 or tuple(rows.shape) != (n, ROW_LEN):
+        raise ValueError(f"rows must be float32 ({n}, {ROW_LEN}), got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if rows.device != canvas_u8.device:
+        raise ValueError("canvas and rows must be on one device")
+    if dtype not in _OUT_DTYPES:
+        raise ValueError(f"output dtype must be one of {_OUT_DTYPES}")
+    oh, ow = out_hw
+    if s2d and (oh % 2 or ow % 2):
+        raise ValueError(f"s2d augmentation needs even output, got {out_hw}")
+
+
+def fused_crop_mirror_normalize_reference(
+        canvas_u8: torch.Tensor, rows: torch.Tensor,
+        out_hw: Tuple[int, int], mean_rgb: Sequence[float],
+        std_rgb: Sequence[float], dtype=torch.bfloat16, *,
+        s2d: bool = False, hsl: bool = False, contrast: bool = False,
+        illum: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: dense resample weights,
+    ``Wy @ img`` then ``·Wx``, then HSL jitter, normalize and cast, all
+    driven by the same (N, 12) rows. With ``s2d`` the per-pixel steps run
+    on a (..., 4, 3) view of the blocked crop."""
+    _check_args(canvas_u8, rows, out_hw, dtype, s2d)
+    y0, x0, ch, cw, flip, vh, vw, dh, ds, dl, alpha, beta = rows.unbind(1)
+    x = crop_resize_bilinear(canvas_u8, (y0, x0, ch, cw), out_hw,
+                             flip=flip > 0.5, valid_hw=(vh, vw), s2d=s2d)
+    shape = x.shape
+    x = x.reshape(shape[:-1] + (-1, 3))
+    if hsl:
+        x = _rgb_to_hsl_adjust(x, dh, ds, dl)
+    x = finish_normalize(x, mean_rgb, std_rgb, dtype,
+                         alpha=alpha if contrast else None,
+                         beta=beta if illum else None)
+    return x.reshape(shape)
+
+
+def fused_crop_mirror_normalize(
+        canvas_u8: torch.Tensor, rows: torch.Tensor,
+        out_hw: Tuple[int, int], mean_rgb: Sequence[float],
+        std_rgb: Sequence[float], dtype=torch.bfloat16, *,
+        s2d: bool = False, hsl: bool = False, contrast: bool = False,
+        illum: bool = False) -> torch.Tensor:
+    """(N,Hc,Wc,3) uint8 canvas + (N,12) rows -> (N,oh,ow,3) normalized
+    ``dtype``, or (N,oh/2,ow/2,12) in the (py, px, c) block order with
+    ``s2d``.
+
+    On a CUDA tensor it launches the CUDA kernel and raises if the launch
+    fails; on a CPU tensor it runs the plain version.
+    ``fused_crop_mirror_normalize.launches`` counts kernel launches.
+    """
+    if canvas_u8.device.type == "cpu":
+        return fused_crop_mirror_normalize_reference(
+            canvas_u8, rows, out_hw, mean_rgb, std_rgb, dtype, s2d=s2d,
+            hsl=hsl, contrast=contrast, illum=illum)
+    if canvas_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {canvas_u8.device}")
+    _check_args(canvas_u8, rows, out_hw, dtype, s2d)
+    if not (canvas_u8.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("canvas and rows must be contiguous")
+    n, sh, sw, _ = canvas_u8.shape
+    oh, ow = out_hw
+    if n > 65535:
+        raise ValueError(f"at most 65535 images per launch, got {n}")
+    shape = (n, oh // 2, ow // 2, 12) if s2d else (n, oh, ow, 3)
+    out = torch.empty(shape, dtype=dtype, device=canvas_u8.device)
+    from resnet_tpu_torch._build import load_library
+    lib = load_library("augment")
+    mean = [float(m) for m in mean_rgb]
+    inv_std = [1.0 / float(s) for s in std_rgb]
+    with torch.cuda.device(canvas_u8.device):
+        err = lib.fused_crop_mirror_normalize_launch(
+            canvas_u8.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            n, sh, sw, oh, ow, *mean, *inv_std,
+            int(dtype == torch.bfloat16), int(s2d), int(hsl),
+            int(contrast), int(illum),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_crop_mirror_normalize kernel launch failed: CUDA error "
+            f"{err}")
+    fused_crop_mirror_normalize.launches += 1
+    return out
+
+
+fused_crop_mirror_normalize.launches = 0
+
+
+def sample_photometric(generator: torch.Generator, cfg: DataConfig, n: int,
+                       device=None) -> dict:
+    """Per-image photometric jitter values: ``dh/ds/dl`` (HSL, when any
+    range is set), ``alpha`` (contrast) and ``beta`` (illumination), each
+    uniform over its configured range, (n,) float32."""
+    def uniform(lo, hi):
+        u = torch.rand((n,), generator=generator, device=device)
+        return lo + u * (hi - lo)
+
+    ph = {}
+    if cfg.random_h or cfg.random_s or cfg.random_l:
+        ph["dh"] = uniform(-cfg.random_h, cfg.random_h)
+        ph["ds"] = uniform(-cfg.random_s, cfg.random_s)
+        ph["dl"] = uniform(-cfg.random_l, cfg.random_l)
+    if cfg.max_random_contrast > 0:
+        c = cfg.max_random_contrast
+        ph["alpha"] = uniform(1.0 - c, 1.0 + c)
+    if cfg.max_random_illumination > 0:
+        il = cfg.max_random_illumination
+        ph["beta"] = uniform(-il, il)
+    return ph
+
+
+def augment_rows(boxes, flip: Optional[torch.Tensor], valid_hw,
+                 photometric: dict, n: int, canvas_hw: Tuple[int, int],
+                 device=None) -> torch.Tensor:
+    """Pack per-image values into the kernel's (N, 12) float32 rows;
+    missing values default as the JAX wrapper does (no flip, the whole
+    canvas valid, zero jitter)."""
+    zeros = torch.zeros((n,), device=device)
+    if valid_hw is None:
+        valid_hw = (torch.full((n,), float(canvas_hw[0]), device=device),
+                    torch.full((n,), float(canvas_hw[1]), device=device))
+    cols = [*boxes, zeros if flip is None else flip, *valid_hw,
+            *(photometric.get(k, zeros)
+              for k in ("dh", "ds", "dl", "alpha", "beta"))]
+    return torch.stack([c.float() for c in cols], dim=1).contiguous()
+
+
+def augment_imagenet_fused(canvas_u8: torch.Tensor,
+                           generator: Optional[torch.Generator],
+                           cfg: DataConfig,
+                           out_hw: Tuple[int, int] = (224, 224),
+                           dtype=torch.bfloat16,
+                           dims: Optional[torch.Tensor] = None,
+                           s2d: bool = False,
+                           rows: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Train-time ImageNet augmentation through the fused kernel: MXNet
+    random-resized-crop boxes (full-image domain when ``dims`` gives the
+    original sizes), mirror with p=0.5, HSL/contrast/illumination jitter,
+    normalize and cast. The drop-in for ``augment_imagenet_pallas``.
+
+    The per-image values are drawn from ``generator`` in the order boxes,
+    mirror, photometrics, unless ``rows`` (N, 12) supplies them.
+    """
+    if cfg.max_rotate_angle > 0 or cfg.max_shear_ratio > 0:
+        raise NotImplementedError(
+            "the rotate/shear warp is not ported yet")
+    n, hc, wc, _ = canvas_u8.shape
+    dev = canvas_u8.device
+    if rows is None:
+        boxes = sample_boxes_canvas(generator, cfg, n, hc, wc, out_hw, dims,
+                                    device=dev)
+        flip = (torch.rand((n,), generator=generator, device=dev) < 0.5
+                if cfg.rand_mirror else None)
+        valid = (dims[:, 2], dims[:, 3]) if dims is not None else None
+        ph = sample_photometric(generator, cfg, n, device=dev)
+        rows = augment_rows(boxes, flip, valid, ph, n, (hc, wc), device=dev)
+    return fused_crop_mirror_normalize(
+        canvas_u8, rows, out_hw, cfg.mean_rgb, cfg.std_rgb, dtype, s2d=s2d,
+        hsl=bool(cfg.random_h or cfg.random_s or cfg.random_l),
+        contrast=cfg.max_random_contrast > 0,
+        illum=cfg.max_random_illumination > 0)
+
+
+def make_augment_fn(cfg: Config) -> Callable:
+    """The train step's augmenter for ``cfg``: output ``image_shape[:2]``
+    in the compute dtype, in the s2d block layout when ``aug_s2d`` and
+    ``stem_s2d`` are both set. Returns
+    ``f(canvas_u8, generator, dims=None, rows=None)``."""
+    dtype = DTYPES[cfg.train.dtype]
+    s2d = cfg.train.aug_s2d and cfg.train.stem_s2d
+    out_hw = tuple(cfg.data.image_shape[:2])
+
+    def augment_fn(canvas_u8, generator, dims=None, rows=None):
+        return augment_imagenet_fused(canvas_u8, generator, cfg.data, out_hw,
+                                      dtype, dims=dims, s2d=s2d, rows=rows)
+    return augment_fn
