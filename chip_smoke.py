@@ -4,20 +4,30 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``resnet_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card at the training shapes,
-drives the ``imagenet_resnet50`` training step at full width (ResNet-50,
-batch 128, bf16, six steps per call) through the port's entry points,
-checks that step against the port's CPU path on a small input, and runs
-one eval step. Each phase prints one JSON line; a failed check raises and
-the script exits non-zero. The last lines are the kernels line, the
-card's ``nvidia-smi`` name and power limit, and
+against its plain PyTorch version on the card at the training shapes and
+times it there, and drives the ``imagenet_resnet50`` training step at full
+width (ResNet-50, batch 128, bf16, six steps per call) through the port's
+entry points on four execution paths: the preset's bn-ema path, the chain
+units (``unit_chain="pallas"``), the fused conv+BN units
+(``fused_convbn``) and, beside them, the full-batch-BN path both replace.
+It checks one float32 step of each path against the port's CPU path on a
+small input, and runs one eval step. Each phase prints one JSON line; a
+failed check raises and the script exits non-zero. The last lines are the
+kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package.
+
+``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
+kernel); with no arguments every phase runs.
 """
 
+import argparse
+import contextlib
+import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -28,6 +38,7 @@ import torch
 CANVAS, OUT, BATCH = 256, 224, 128
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM, dense bf16 on the tensor cores
 # float32 operations per output pixel of the augmentation kernel with HSL
 # on, counted from csrc/augment.cu (each add, multiply, divide, min, max,
 # abs, floor, compare and floor-mod one): coordinates 18 + 21, the 2x2
@@ -55,6 +66,29 @@ def require(cond, what):
         raise AssertionError(what)
 
 
+# device cycles of a spin kernel put in front of every timed run (about
+# 0.2 ms): while the card spins, the host enqueues the start event, the
+# launches of ``fn`` and the end event, so that the events bracket device
+# work and not the host's launch gaps, which vary with the host's load
+SPIN_CYCLES = 400_000
+
+
+@contextlib.contextmanager
+def full_float32():
+    """TF32 off for float32 convolutions and matrix products (every float32
+    comparison on the card needs that); the flags are restored afterwards,
+    so the train paths run at PyTorch's defaults."""
+    from resnet_tpu_torch.utils.device import set_tf32
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
 def cuda_median_ms(fn, runs=25, flush=None):
     """Median of ``runs`` CUDA-event timings of ``fn()``; ``flush`` is
     written before each run so that its inputs come from HBM, not L2."""
@@ -62,6 +96,7 @@ def cuda_median_ms(fn, runs=25, flush=None):
     for _ in range(runs):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -186,18 +221,21 @@ def check_augment_kernel(cfg):
     return worst, timing
 
 
-def small_reference_check():
+def reference_check(phase, **train_overrides):
     """One float32 train step of full-width ResNet-50 on a small input, on
-    the card and on the CPU from the same weights and rows: the CPU path
-    is the one the tests hold against the JAX package."""
+    the card (through the kernels) and on the CPU (through their plain
+    versions) from the same weights and rows: the CPU path is the one the
+    tests hold against the JAX package. ``train_overrides`` set fields of
+    ``cfg.train`` (the execution-path switches)."""
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
     from resnet_tpu_torch.train.steps import make_train_step
-    from resnet_tpu_torch.utils.device import set_tf32
     cfg = imagenet_resnet50()
     cfg.train.dtype = "float32"
     cfg.data.image_shape = (96, 96, 3)
+    for name, value in train_overrides.items():
+        setattr(cfg.train, name, value)
     n = 8
     gen = torch.Generator(device="cuda").manual_seed(1)
     canvas, rows, _ = aug_inputs(cfg.data, gen, n, False, canvas_side=112,
@@ -206,13 +244,13 @@ def small_reference_check():
              "label": torch.randint(0, 1000, (n,), generator=gen,
                                     device="cuda"),
              "rows": rows}
-    set_tf32(False)
     results = {}
-    for dev in ("cpu", "cuda"):
-        state = create_train_state(cfg, device=dev)
-        step = make_train_step(augment_fn=make_augment_fn(cfg))
-        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
-        results[dev] = (float(m["loss_sum"]), state)
+    with full_float32():
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, device=dev)
+            step = make_train_step(augment_fn=make_augment_fn(cfg))
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            results[dev] = (float(m["loss_sum"]), state)
     (loss_cpu, st_cpu), (loss_gpu, st_gpu) = results["cpu"], results["cuda"]
 
     def rel(xs, ys):
@@ -229,25 +267,334 @@ def small_reference_check():
             if p is st_cpu.model.fc.weight]
     head_err = rel([st_gpu.momentum[i] for i in head],
                    [st_cpu.momentum[i] for i in head])
+    stats_err = rel(list(st_gpu.model.buffers()), list(st_cpu.model.buffers()))
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    emit(phase="reference_check", model="resnet50 f32", batch=n,
-         image=list(cfg.data.image_shape), loss_cuda=loss_gpu,
-         loss_cpu=loss_cpu, loss_rel_err=loss_err, momentum_rel_err=mom_err,
-         fc_momentum_rel_err=head_err)
+    emit(phase=phase, model="resnet50 f32", batch=n,
+         image=list(cfg.data.image_shape), switches=train_overrides,
+         loss_cuda=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=loss_err,
+         momentum_rel_err=mom_err, fc_momentum_rel_err=head_err,
+         running_stats_rel_err=stats_err)
     require(loss_err < 1e-4, "loss differs from the CPU path")
     # the momentum is the update, -lr * (gradient + wd * w). ResNet-50's
     # backward at init amplifies rounding from the head down: two float32
-    # paths that sum in other orders agree on the whole update to about
-    # 2-2.5% here, on the fc head's to far better; a wrong path on neither
+    # paths that sum in other orders agree on the whole update to a few
+    # percent here, on the fc head's and on the refreshed running statistics
+    # (forward only) to far better; a wrong path on none of them
     require(head_err < 1e-3, "the fc update differs from the CPU path")
+    require(stats_err < 1e-3, "the running statistics differ from the CPU "
+            "path")
     require(mom_err < 1e-1, "the update differs from the CPU path")
-    set_tf32(True)
+
+
+# ---------------------------------------------------------------------------
+# the fused 1x1-conv kernels: K2, K3, K4f (forward), K4b (backward)
+# ---------------------------------------------------------------------------
+
+# tolerances of a kernel against its plain version. y and dx, elementwise:
+# |diff| <= atol + rtol*|want| with atol = 1e-5 * max|want| (float32
+# accumulators summed in another order, which is all that differs in
+# float32, hence rtol 1e-4 there) and, in bf16, rtol = 2^-7: one bf16 ulp,
+# where the two round on either side of a boundary. The column sums, dW,
+# dgamma and dbeta are float32 sums of up to 401408 terms: |diff| <=
+# 1e-5 * sum|terms|, a bound relative to the terms and not to a result
+# that may cancel.
+MM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+MM_ATOL_OF_MAX = 1e-5
+MM_SUM_TOL = 1e-5
+# op A shapes (no prologue): the narrowest, a wide-K stage-1 shape, the
+# deepest K, and the 1024x2048 projection; op B: all four conv3 shapes
+CHECK_SHAPES_A = ((401408, 64, 64), (401408, 256, 64), (6272, 2048, 512),
+                  (6272, 1024, 2048))
+CHECK_SHAPES_B = ((401408, 64, 256), (100352, 128, 512), (25088, 256, 1024),
+                  (6272, 512, 2048))
+
+
+def r50_op_shapes(model, batch, side):
+    """The (M, K, N) of every 1x1 conv of one train step, in the model's
+    order, from its structure: ``(op A shapes, op B shapes)``; conv1 and
+    the projection ``sc`` are op A, conv3 is op B. Also the input shape
+    every unit must see, for the check against the running model."""
+    hw = side // 4                      # the stem conv and the pool halve it
+    ops_a, ops_b, unit_inputs = [], [], []
+    for unit in model.units():
+        mid, cin = unit.conv1.weight.shape[:2]
+        filters = unit.conv3.weight.shape[0]
+        unit_inputs.append((batch, cin, hw, hw))
+        ops_a.append((batch * hw * hw, cin, mid))
+        hw = (hw - 1) // unit.conv2.stride + 1
+        if not unit.dim_match:
+            ops_a.append((batch * hw * hw, cin, filters))
+        ops_b.append((batch * hw * hw, mid, filters))
+    return ops_a, ops_b, unit_inputs
+
+
+def op_inputs(gen, m, k, n, dtype):
+    """x (M, K), w (K, N) as the model passes it (the transposed view of an
+    MSRA-scaled (N, K) weight), BN vectors of x's channels, and the
+    backward's cotangents."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x = randn(m, k).to(dtype)
+    w = randn(n, k, scale=(2.0 / k) ** 0.5).to(dtype).t()
+    bn = dict(mean=randn(k, scale=0.2), var=randn(k).abs() + 0.5,
+              gamma=1.0 + randn(k, scale=0.1), beta=randn(k, scale=0.1))
+    cots = dict(gy=randn(m, n).to(dtype), gs=randn(n, scale=0.1),
+                gss=randn(n, scale=0.01))
+    return x, w, bn, cots
+
+
+def compare(got, want, bound):
+    """(entries out of tolerance, max |diff|, max |diff|/bound)."""
+    diff = (got.float() - want.float()).abs()
+    return (int((diff > bound).sum()), float(diff.max()),
+            float((diff / bound).max()))
+
+
+def elementwise_bound(want, dtype):
+    w = want.float().abs()
+    return MM_ATOL_OF_MAX * w.max() + MM_RTOL[dtype] * w
+
+
+def report(phase, results, **fields):
+    """Emit one check line; raise if any output has an entry out of
+    tolerance. ``results``: name -> compare(...) tuple."""
+    bad = {k: v[0] for k, v in results.items()}
+    emit(phase=phase, **fields, out_of_tolerance=bad,
+         max_abs_diff={k: v[1] for k, v in results.items()},
+         max_diff_over_bound={k: v[2] for k, v in results.items()})
+    require(not any(bad.values()),
+            f"{phase}: kernel disagrees with its plain version: {bad}")
+
+
+def check_forward_kernels():
+    """K2, K3 and K4f against their plain versions at ResNet-50's shapes,
+    in bf16 and in float32 (TF32 off). Returns name -> worst |diff| of y."""
+    from resnet_tpu_torch.ops import fused_chain as fc
+    from resnet_tpu_torch.ops import fused_convbn as cb
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"k2": 0.0, "k3": 0.0, "k4f": 0.0}
+
+    def check(phase, key, got, want, dtype, **fields):
+        torch.cuda.synchronize()
+        y, s, ss = want
+        require(got[0].dtype == dtype and got[0].shape == y.shape
+                and bool(torch.isfinite(got[0].float()).all()),
+                f"{phase}: output {got[0].dtype} {tuple(got[0].shape)}")
+        yf = y.float()
+        results = {
+            "y": compare(got[0], y, elementwise_bound(y, dtype)),
+            "sum": compare(got[1], s, MM_SUM_TOL * yf.abs().sum(0)),
+            "sumsq": compare(got[2], ss, MM_SUM_TOL * (yf * yf).sum(0))}
+        report(phase, results, dtype=str(dtype), **fields)
+        worst[key] = max(worst[key], results["y"][1])
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in CHECK_SHAPES_A:
+            x, w, _, _ = op_inputs(gen, *shape, dtype)
+            want = mk.forward_plain(x, w)
+            check("k2_check", "k2", cb.matmul_with_stats(x, w), want, dtype,
+                  shape=shape)
+            with torch.no_grad():
+                got = fu.matmul_stats(x, w, "pallas")
+            check("k4f_check", "k4f", got, want, dtype, shape=shape,
+                  normalize=False, relu=False)
+        for shape in CHECK_SHAPES_B:
+            x, w, bn, _ = op_inputs(gen, *shape, dtype)
+            for relu in (True, False):
+                want = fc.normalized_matmul_with_stats_plain(
+                    x, w, **bn, relu=relu)
+                got = fc.normalized_matmul_with_stats(x, w, **bn, relu=relu)
+                check("k3_check", "k3", got, want, dtype, shape=shape,
+                      relu=relu)
+                with torch.no_grad():
+                    got = fu.norm_relu_matmul_stats(x, w, *bn.values(), 2e-5,
+                                                    relu, "pallas")
+                check("k4f_check", "k4f", got, want, dtype, shape=shape,
+                      normalize=True, relu=relu)
+    return worst
+
+
+def backward_consts(bn, eps=2e-5):
+    inv = torch.rsqrt(bn["var"] + eps)
+    a = bn["gamma"] * inv
+    return a, bn["beta"] - bn["mean"] * a, inv, -bn["mean"] * inv
+
+
+def check_backward_kernel():
+    """K4b against its plain version: op A, op B with and without ReLU.
+    Returns the worst |diff| of dx."""
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    cases = [(s, False, False) for s in CHECK_SHAPES_A] \
+        + [(s, True, relu) for s in CHECK_SHAPES_B for relu in (True, False)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, normalize, relu in cases:
+            x, w, bn, cots = op_inputs(gen, *shape, dtype)
+            consts = backward_consts(bn) if normalize else None
+            a, b = consts[:2] if normalize else (None, None)
+            y = mk.forward_plain(x, w, a, b, relu)[0]
+            args = (cots["gy"], cots["gs"], cots["gss"], y, x, w, consts,
+                    relu)
+            got = fu.fused_backward(*args)
+            want = fu.fused_backward_plain(*args)
+            torch.cuda.synchronize()
+            require(got[0].dtype == dtype and got[1].dtype == torch.float32
+                    and got[1].shape == want[1].shape,
+                    f"k4b outputs {got[0].dtype} {tuple(got[1].shape)}")
+            g = mk.folded_cotangent(cots["gy"], cots["gs"], cots["gss"], y)
+            act = mk.activation(x, a, b, relu)
+            dw_terms = act.float().abs().t() @ g.float().abs()
+            results = {
+                "dx": compare(got[0], want[0],
+                              elementwise_bound(want[0], dtype)),
+                "dw": compare(got[1], want[1], MM_SUM_TOL * dw_terms)}
+            if normalize:
+                # |gxh| recovered from dx = gxh * a
+                gxh = want[0].float().abs() / a.abs()
+                xhat = (x.float() * consts[2] + consts[3]).abs()
+                results["dgamma"] = compare(
+                    got[2], want[2], MM_SUM_TOL * (gxh * xhat).sum(0))
+                results["dbeta"] = compare(got[3], want[3],
+                                           MM_SUM_TOL * gxh.sum(0))
+            else:
+                require(got[2] is None and got[3] is None,
+                        "op A returns no dgamma/dbeta")
+            report("k4b_check", results, dtype=str(dtype), shape=shape,
+                   normalize=normalize, relu=relu,
+                   dw_splits=mk.dw_splits(*shape)[0])
+            worst = max(worst, results["dx"][1])
+    return worst
+
+
+def mm_bound(m, k, n, backward):
+    """(bound ms, what bounds it) of one op in bf16: the bytes it must move
+    over the memory rate against its products' operations over the tensor
+    cores' rate. Forward: read x and W, write y and the two (N,) sums.
+    Backward: read gy, y, x, W; write dx and the float32 dW; two products."""
+    if backward:
+        moved = (2 * m * n + 2 * m * k + k * n) * 2 + k * n * 4
+        ops = 2 * 2 * m * k * n
+    else:
+        moved = (m * k + k * n + m * n) * 2 + 2 * n * 4
+        ops = 2 * m * k * n
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def time_matmul_kernels(ops_a, ops_b):
+    """Each distinct ResNet-50 shape, forward and backward, bf16: the
+    kernel, its plain version, the bound, and ``torch.mm`` on the bare
+    product(s) as context. Returns per-step sums by kernel."""
+    from resnet_tpu_torch.ops import fused_chain as fc
+    from resnet_tpu_torch.ops import fused_convbn as cb
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    dtype = torch.bfloat16
+    count_a = {s: ops_a.count(s) for s in dict.fromkeys(ops_a)}
+    count_b = {s: ops_b.count(s) for s in dict.fromkeys(ops_b)}
+    zero = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                        ops_ms=0.0)
+    step = {"k2": zero(), "k3": zero(), "k4f": zero(), "k4b": zero()}
+
+    def add(key, times, ms, plain_ms, bound, by):
+        step[key]["ms"] += times * ms
+        step[key]["plain_ms"] += times * plain_ms
+        step[key]["bound_ms"] += times * bound
+        step[key]["bytes_ms" if by == "bytes" else "ops_ms"] += times * bound
+
+    def med(fn):
+        return cuda_median_ms(fn, flush=flush)
+
+    with torch.no_grad():
+        for shape, times, prologue in (
+                [(s, c, False) for s, c in count_a.items()]
+                + [(s, c, True) for s, c in count_b.items()]):
+            x, w, bn, cots = op_inputs(gen, *shape, dtype)
+            consts = backward_consts(bn) if prologue else None
+            a, b = consts[:2] if prologue else (None, None)
+            bound, by = mm_bound(*shape, backward=False)
+            plain_ms = med(lambda: mk.forward_plain(x, w, a, b, prologue))
+            mm_ms = med(lambda: torch.mm(x, w))
+            if prologue:
+                ms = med(lambda: fu.norm_relu_matmul_stats(
+                    x, w, *bn.values(), 2e-5, True, "pallas"))
+                k3_ms = med(lambda: fc.normalized_matmul_with_stats(
+                    x, w, **bn))
+                add("k3", times, k3_ms, plain_ms, bound, by)
+                # K2 runs conv3 too, without the prologue
+                k2_ms = med(lambda: cb.matmul_with_stats(x, w))
+                k2_plain = med(lambda: mk.forward_plain(x, w))
+            else:
+                ms = med(lambda: fu.matmul_stats(x, w, "pallas"))
+                k2_ms, k2_plain = med(lambda: cb.matmul_with_stats(x, w)), \
+                    plain_ms
+            add("k4f", times, ms, plain_ms, bound, by)
+            add("k2", times, k2_ms, k2_plain, bound, by)
+            emit(phase="k4f_timing", shape=shape, per_step=times,
+                 normalize=prologue, relu=prologue, runs=25, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 torch_mm_ms=mm_ms, k2_ms=k2_ms,
+                 k3_ms=k3_ms if prologue else None)
+
+            y = mk.forward_plain(x, w, a, b, prologue)[0]
+            args = (cots["gy"], cots["gs"], cots["gss"], y, x, w, consts,
+                    prologue)
+            bound, by = mm_bound(*shape, backward=True)
+            ms = med(lambda: fu.fused_backward(*args))
+            plain_ms = med(lambda: fu.fused_backward_plain(*args))
+            gy = cots["gy"]
+            mm_ms = med(lambda: (torch.mm(gy, w.t()), torch.mm(x.t(), gy)))
+            add("k4b", times, ms, plain_ms, bound, by)
+            emit(phase="k4b_timing", shape=shape, per_step=times,
+                 normalize=prologue, relu=prologue, runs=25, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 torch_mm_ms=mm_ms, dw_splits=mk.dw_splits(*shape)[0])
+    for key, t in step.items():
+        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t.pop("ops_ms") \
+            else "operations"
+        emit(phase=f"{key}_step_total", launches_per_step=(
+            sum(count_b.values()) if key == "k3"
+            else sum(count_a.values()) + sum(count_b.values())), **t)
+    return step
+
+
+def k3_path(ops_b):
+    """K3 has no model path in the JAX package; its path here is one call
+    per conv3 of a ResNet-50 step, at those shapes, in bf16. Returns the
+    launches."""
+    from resnet_tpu_torch.ops.fused_chain import normalized_matmul_with_stats
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inputs = {s: op_inputs(gen, *s, torch.bfloat16)
+              for s in dict.fromkeys(ops_b)}
+    normalized_matmul_with_stats.launches = 0
+    for shape in ops_b:
+        x, w, bn, _ = inputs[shape]
+        y, s, ss = normalized_matmul_with_stats(x, w, **bn)
+        require(y.shape == (shape[0], shape[2]) and bool(
+            torch.isfinite(y.float()).all() & torch.isfinite(s).all()
+            & torch.isfinite(ss).all()), f"k3_path output at {shape}")
+    torch.cuda.synchronize()
+    launches = normalized_matmul_with_stats.launches
+    emit(phase="k3_path", calls=len(ops_b), launches=launches)
+    require(launches == len(ops_b), f"K3 launched {launches} times in "
+            f"{len(ops_b)} calls")
+    return launches
 
 
 # device-time categories of the traced call, matched on kernel names in
 # this order
 KERNEL_GROUPS = (
     ("augment kernel", ("fused_crop_mirror_normalize",)),
+    ("fused 1x1-conv kernels", ("matmul_stats_kernel", "bwd_dx_kernel",
+                                "bwd_dw_kernel")),
     ("conv and matmul", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90",
                          "wgrad", "dgrad", "implicit")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -256,7 +603,7 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_call(step, state, batch, images, untraced_ms):
+def profile_call(phase, step, state, batch, images, untraced_ms):
     """One more train call under torch.profiler: device time by kernel
     group, and the device's busy share of an untraced call (device time
     over the untraced calls' median wall time; the traced call's own wall
@@ -281,7 +628,7 @@ def profile_call(step, state, batch, images, untraced_ms):
         groups[group] = groups.get(group, 0.0) + ms
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit(phase="profile", images=images, traced_wall_ms=wall_ms,
+    emit(phase="profile", path=phase, images=images, traced_wall_ms=wall_ms,
          untraced_call_ms=untraced_ms,
          device_busy_ms=busy_ms if busy_ms else "not measured",
          device_busy_share=(busy_ms / untraced_ms if busy_ms
@@ -290,12 +637,14 @@ def profile_call(step, state, batch, images, untraced_ms):
          top_kernels=[{"name": n[:90], "ms": ms} for n, ms in top])
 
 
-def main_path(cfg):
-    """The imagenet_resnet50 train call at full width: 1 warm-up call and
-    3 timed calls of 6 steps at batch 128, then one eval step."""
+def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
+    """One full-width train path: ResNet-50, batch 128, bf16, 6 steps a
+    call; 1 warm-up call and ``timed_calls`` timed ones. ``per_step`` maps
+    each kernel wrapper on this path to its expected launches per step; the
+    counts are set to 0 just before the path is driven and read just after.
+    Returns wrapper -> launches."""
     from resnet_tpu_torch.ops.augment import eval_center_crop
-    from resnet_tpu_torch.ops.augment_fused import (
-        fused_crop_mirror_normalize, make_augment_fn)
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
     from resnet_tpu_torch.train.steps import eval_step, make_train_step
     torch.backends.cudnn.benchmark = True
@@ -316,74 +665,185 @@ def main_path(cfg):
         "dims": torch.full((k, bs, 4), CANVAS, dtype=torch.int32,
                            device="cuda"),
     } for _ in range(2)]
+    # the shapes this file times are derived from the model's structure:
+    # hold them against what the running model's units really receive
+    seen = []
+    hooks = [u.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)))
+        for u in state.model.units()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fused_crop_mirror_normalize.launches = 0
-    calls, times, losses = 4, [], []
+    for wrapper in per_step:
+        wrapper.launches = 0
+    calls, times, losses = 1 + timed_calls, [], []
     for c in range(calls):
         tic = time.perf_counter()
         state, m = step(state, pool[c % 2])
         torch.cuda.synchronize()
         if c:                                   # call 0 is the warm-up
             times.append(time.perf_counter() - tic)
+        else:
+            for h in hooks:
+                h.remove()
         losses.append(float(m["loss_sum"] / m["count"]))
-    launches = fused_crop_mirror_normalize.launches
+    launches = {w: w.launches for w in per_step}
+    steps = calls * k
     require(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
-    require(launches == calls * k, f"augmentation kernel launched "
-            f"{launches} times in {calls * k} steps")
-    require(state.step == calls * k, "step count")
+    for w, n in per_step.items():
+        require(launches[w] == steps * n and launches[w] > 0,
+                f"{phase}: {w.__name__} launched {launches[w]} times in "
+                f"{steps} steps, expected {n} a step")
+    require(state.step == steps, "step count")
+    want_inputs = r50_op_shapes(state.model, bs, OUT)[2]
+    require(seen == want_inputs * k, f"{phase}: the units saw {seen[:3]}..., "
+            f"the shape table assumes {want_inputs[:3]}...")
     call_s = statistics.median(times)
-    emit(phase="main_path", model="resnet50", batch=bs,
-         steps_per_call=k, calls=calls, warmup_calls=1, losses=losses,
-         call_seconds=times, median_call_seconds=call_s,
-         img_per_s=k * bs / call_s, aug_kernel_launches=launches,
+    emit(phase=phase, model="resnet50", batch=bs, steps_per_call=k,
+         calls=calls, warmup_calls=1, losses=losses, call_seconds=times,
+         median_call_seconds=call_s, img_per_s=k * bs / call_s,
+         bn_ema=cfg.train.bn_ema, unit_chain=cfg.train.unit_chain,
+         fused_convbn=cfg.train.fused_convbn,
+         launches={w.__name__: n for w, n in launches.items()},
+         launches_per_step={w.__name__: n for w, n in per_step.items()},
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          card=nvidia_smi_line(), device=torch.cuda.get_device_name(0))
-    profile_call(step, state, pool[0], k * bs, call_s * 1e3)
-
-    metrics = eval_step(state, {"image": pool[0]["image"][0],
-                                "label": pool[0]["label"][0]},
-                        preprocess_fn=lambda im: eval_center_crop(
-                            im, cfg.data, (OUT, OUT), torch.bfloat16))
-    ev = {name: float(v) for name, v in metrics.items()}
-    require(ev["count"] == bs and all(map(math.isfinite, ev.values())),
-            f"eval metrics {ev}")
-    emit(phase="eval_step", **ev)
+    profile_call(phase, step, state, pool[0], k * bs, call_s * 1e3)
+    if eval_after:
+        metrics = eval_step(state, {"image": pool[0]["image"][0],
+                                    "label": pool[0]["label"][0]},
+                            preprocess_fn=lambda im: eval_center_crop(
+                                im, cfg.data, (OUT, OUT), torch.bfloat16))
+        ev = {name: float(v) for name, v in metrics.items()}
+        require(ev["count"] == bs and all(map(math.isfinite, ev.values())),
+                f"eval metrics {ev}")
+        emit(phase="eval_step", **ev)
+    del state, step, pool
+    torch.cuda.empty_cache()
     return launches
 
 
-def main():
+def build_phase():
+    from resnet_tpu_torch import _build
+    tic = time.perf_counter()
+    libs = _build.build_all()
+    seconds = time.perf_counter() - tic
+    usage = {}
+    for name in libs:
+        log = _build.build_log(name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        usage[name] = dict(kernels=len(regs), max_registers=max(regs, default=None),
+                           spill_store_bytes=sum(spills))
+    emit(phase="build", seconds=seconds,
+         libraries=sorted(p.name for p in libs.values()), ptxas=usage)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default="", help="comma-separated phases "
+                        "to run after the build (default: all)")
+    only = set(filter(None, parser.parse_args(argv).only.split(",")))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    from resnet_tpu_torch import _build
     from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.models.registry import get_model
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops.augment_fused import \
+        fused_crop_mirror_normalize as k1
+    from resnet_tpu_torch.ops.fused_chain import \
+        normalized_matmul_with_stats as k3
+    from resnet_tpu_torch.ops.fused_convbn import matmul_with_stats as k2
+
+    def on(phase):
+        return not only or phase in only
 
     card = nvidia_smi_line()
     print(card, flush=True)
     emit(phase="card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    build_phase()
 
-    tic = time.perf_counter()
-    libs = _build.build_all()
-    emit(phase="build", seconds=time.perf_counter() - tic,
-         libraries=sorted(p.name for p in libs.values()))
+    cfg = imagenet_resnet50()                      # the preset: bn-ema
+    full = imagenet_resnet50()                     # full-batch BN
+    full.train.bn_ema = False
+    chain, fused = copy.deepcopy(full), copy.deepcopy(full)
+    chain.train.unit_chain = "pallas"
+    fused.train.fused_convbn = True
+    ops_a, ops_b, _ = r50_op_shapes(get_model(full), BATCH, OUT)
+    emit(phase="r50_shapes", op_a=len(ops_a), op_b=len(ops_b),
+         distinct_a=sorted(set(ops_a), reverse=True),
+         distinct_b=sorted(set(ops_b), reverse=True))
+    require((len(ops_a), len(ops_b)) == (20, 16), "ResNet-50 has 20 op-A "
+            "and 16 op-B 1x1 convs")
 
-    cfg = imagenet_resnet50()
-    worst, timing = check_augment_kernel(cfg)
-    small_reference_check()
-    launches = main_path(cfg)
+    if on("k1"):
+        k1_worst, k1_time = check_augment_kernel(cfg)
+    if on("mm_check"):
+        with full_float32():
+            fwd_worst = check_forward_kernels()
+            bwd_worst = check_backward_kernel()
+    if on("mm_timing"):
+        step_ms = time_matmul_kernels(ops_a, ops_b)
+    if on("k3_path"):
+        k3_launches = k3_path(ops_b)
+    if on("reference"):
+        reference_check("reference_check")
+    if on("chain_reference"):
+        reference_check("chain_reference_check", bn_ema=False,
+                        unit_chain="pallas")
+    if on("fused_reference"):
+        reference_check("fused_reference_check", bn_ema=False,
+                        fused_convbn=True)
+    if on("main"):
+        main_l = train_path("main_path", cfg, 3, {k1: 1}, eval_after=True)
+    if on("chain"):
+        chain_l = train_path("chain_path", chain, 3, {
+            k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
+            fu.fused_backward: 36})
+    if on("fused"):
+        fused_l = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
+    if on("fullbatch"):
+        train_path("fullbatch_path", full, 2, {k1: 1})
 
-    kernel = dict(name="fused_crop_mirror_normalize", route="cuda",
-                  source="resnet_tpu_torch/csrc/augment.cu",
-                  replaces="resnet_tpu/ops/augment_pallas.py:105",
-                  launches=launches, max_abs_err=worst, ms=timing["ms"],
-                  plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-                  bound_by=timing["bound_by"], library_ms=None)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    if not only:
+        def mm_kernel(name, source, replaces, launches, err, t):
+            return dict(name=name, route="cuda",
+                        source=f"resnet_tpu_torch/csrc/{source}",
+                        replaces=replaces, launches=launches,
+                        max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                        library_ms=None)
+        kernels = [
+            dict(name="fused_crop_mirror_normalize", route="cuda",
+                 source="resnet_tpu_torch/csrc/augment.cu",
+                 replaces="resnet_tpu/ops/augment_pallas.py:105",
+                 launches=main_l[k1], max_abs_err=k1_worst, ms=k1_time["ms"],
+                 plain_ms=k1_time["plain_ms"], bound_ms=k1_time["bound_ms"],
+                 bound_by=k1_time["bound_by"], library_ms=None),
+            # ms, plain_ms and bound_ms of the next four: sums over the
+            # launches of one ResNet-50 step at batch 128, bf16
+            mm_kernel("matmul_with_stats", "matmul_stats.cu",
+                      "resnet_tpu/ops/fused_convbn.py:33", fused_l[k2],
+                      fwd_worst["k2"], step_ms["k2"]),
+            mm_kernel("normalized_matmul_with_stats", "matmul_stats.cu",
+                      "resnet_tpu/ops/fused_chain.py:33", k3_launches,
+                      fwd_worst["k3"], step_ms["k3"]),
+            mm_kernel("matmul_stats+norm_relu_matmul_stats",
+                      "matmul_stats.cu", "resnet_tpu/ops/fused_unit.py:71",
+                      chain_l[fu.matmul_stats]
+                      + chain_l[fu.norm_relu_matmul_stats],
+                      fwd_worst["k4f"], step_ms["k4f"]),
+            mm_kernel("fused_backward", "matmul_stats_bwd.cu",
+                      "resnet_tpu/ops/fused_unit.py:138",
+                      chain_l[fu.fused_backward], bwd_worst, step_ms["k4b"]),
+        ]
+        require(all(kern["launches"] > 0 for kern in kernels),
+                "a kernel of the paths was launched no time")
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,11 @@ class TrainConfig:
     bn_ema: bool = False              # live batch mean + stop-grad clamped var
     bn_ema_project: bool = True       # radial projection with bn_ema
     bn_ema_clamp: float = 1.0         # trust region vs the batch evidence
+    fused_convbn: bool = False        # BN statistics fused into the 1x1 convs
+    # chain dataflow for v1 bottleneck units: off | xla | pallas. The values
+    # are the JAX package's; in the port "pallas" selects the hand-written
+    # CUDA kernels and "xla" the same ops as separate PyTorch ops.
+    unit_chain: str = "off"
     steps_per_dispatch: int = 1       # SGD steps per train-step call
     stem_s2d: bool = False            # 7x7/2 stem as a 4x4/1 conv on s2d input
     aug_s2d: bool = False             # augmenter emits the s2d block layout

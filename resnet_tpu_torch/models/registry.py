@@ -54,10 +54,19 @@ def get_model(cfg: Config,
             "--bn-ema-clamp is a trust-region RATIO: >= 1 (1.0 = normalize "
             "with the live batch evidence, larger = more running-stats "
             "slack), or 0 to disable clamping entirely")
+    if t.bn_ema and (t.fused_convbn or t.unit_chain != "off"):
+        # the fused/chain kernels compute batch statistics in their
+        # epilogues; silently ignoring either flag would run something
+        # other than what the flags say
+        raise ValueError(
+            "--bn-ema does not compose with --bn-grouped, --fused-convbn "
+            "or --unit-chain (those compute/apply batch statistics); "
+            "drop one of the flags")
     if generator is None:
         generator = torch.Generator().manual_seed(t.seed)
     return ResNet(units=units, filters=filters,
                   num_classes=cfg.data.num_classes, bottleneck=bottleneck,
                   bn_mom=m.bn_mom, bn_eps=m.bn_eps, dtype=DTYPES[t.dtype],
                   bn_ema=t.bn_ema, bn_ema_clamp=t.bn_ema_clamp,
-                  stem_s2d=t.stem_s2d, generator=generator)
+                  stem_s2d=t.stem_s2d, fused=t.fused_convbn,
+                  unit_chain=t.unit_chain, generator=generator)

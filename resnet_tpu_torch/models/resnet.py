@@ -9,8 +9,13 @@ float32. Parameters keep the reference's shapes in PyTorch's layout (conv
 weights OIHW, fc weight (out, in)), which is also MXNet's, so the weight
 bridge (``utils/export.py``) needs no transposes.
 
+``fused`` and ``unit_chain`` switch the execution path of v1 bottleneck
+units in train mode (``models/fused.py``, ``models/chain.py``); the modules
+that own the parameters and running statistics stay the same under every
+switch.
+
 Not ported yet: v2 units, the CIFAR stem, ResNeXt grouped convs, remat and
-the off-default BN and fused-kernel switches.
+the off-default BN switches (subsample, grouped, stat stride).
 """
 
 from __future__ import annotations
@@ -195,13 +200,23 @@ class BatchNorm(nn.Module):
 class ResidualUnit(nn.Module):
     """v1 residual unit (ref:symbol/resnet.py residual_unit): conv-BN-ReLU
     chains, a projection shortcut conv-BN when ``dim_match`` is False, ReLU
-    after the add. The stride sits on the bottleneck's 3x3."""
+    after the add. The stride sits on the bottleneck's 3x3.
+
+    In train mode a bottleneck unit takes the chain dataflow when
+    ``unit_chain`` is ``"xla"`` (separate PyTorch ops) or ``"pallas"`` (the
+    hand-written CUDA kernels), else the fused conv+BN path when ``fused``;
+    eval and basic units always take the standard path."""
 
     def __init__(self, cin: int, filters: int, stride: int, dim_match: bool,
-                 bottleneck: bool, bn_kw: dict, dtype=torch.float32):
+                 bottleneck: bool, bn_kw: dict, dtype=torch.float32,
+                 fused: bool = False, unit_chain: str = "off"):
         super().__init__()
+        if unit_chain not in ("off", "xla", "pallas"):
+            raise ValueError(f"unit_chain must be off|xla|pallas, got "
+                             f"{unit_chain!r}")
         mid = filters // 4 if bottleneck else filters
         self.dim_match, self.bottleneck = dim_match, bottleneck
+        self.fused, self.unit_chain = fused, unit_chain
         if not dim_match:
             self.sc = Conv(cin, filters, 1, stride, dtype=dtype)
             self.sc_bn = BatchNorm(filters, **bn_kw)
@@ -219,6 +234,12 @@ class ResidualUnit(nn.Module):
             self.bn2 = BatchNorm(filters, **bn_kw)
 
     def forward(self, x):
+        if self.bottleneck and self.training:
+            if self.unit_chain != "off":
+                from resnet_tpu_torch.models.chain import chain_unit_v1
+                return chain_unit_v1(self, x, backend=self.unit_chain)
+            if self.fused:
+                return self._forward_fused(x)
         shortcut = x if self.dim_match else self.sc_bn(self.sc(x))
         y = F.relu(self.bn1(self.conv1(x)))
         if self.bottleneck:
@@ -226,6 +247,18 @@ class ResidualUnit(nn.Module):
             y = self.bn3(self.conv3(y))
         else:
             y = self.bn2(self.conv2(y))
+        return F.relu(y + shortcut)
+
+    def _forward_fused(self, x):
+        """Train-mode bottleneck with the BN statistics of the three 1x1
+        convs fused into their products; the 3x3 and bn2 stay standard."""
+        from resnet_tpu_torch.models.fused import fused_conv_bn
+        shortcut = x
+        if not self.dim_match:
+            shortcut = fused_conv_bn(x, self.sc, self.sc_bn, relu=False)
+        y = fused_conv_bn(x, self.conv1, self.bn1, relu=True)
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = fused_conv_bn(y, self.conv3, self.bn3, relu=False)
         return F.relu(y + shortcut)
 
 
@@ -245,7 +278,8 @@ class ResNet(nn.Module):
                  num_classes: int, bottleneck: bool, bn_mom: float = 0.9,
                  bn_eps: float = 2e-5, dtype=torch.float32,
                  bn_ema: bool = False, bn_ema_clamp: float = 1.0,
-                 stem_s2d: bool = False,
+                 stem_s2d: bool = False, fused: bool = False,
+                 unit_chain: str = "off",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype, self.stem_s2d = dtype, stem_s2d
@@ -265,7 +299,8 @@ class ResNet(nn.Module):
                     f"stage{stage + 1}_unit{unit + 1}",
                     ResidualUnit(cin, n_filter, stride, dim_match=not first,
                                  bottleneck=bottleneck, bn_kw=bn_kw,
-                                 dtype=dtype))
+                                 dtype=dtype, fused=fused,
+                                 unit_chain=unit_chain))
                 cin = n_filter
         self.fc = Dense(cin, num_classes)
         self.reset_parameters(generator)

@@ -1,0 +1,251 @@
+"""The matmul-with-statistics kernels' binding and their plain versions.
+
+``csrc/matmul_stats.cu`` and ``csrc/matmul_stats_bwd.cu`` compute one
+family of functions, a 1x1 convolution as the product ``(M, K) @ (K, N)``
+with BatchNorm work in its prologue and epilogue, forward and backward.
+The JAX package wrote it three times forward (``ops/fused_convbn.py``,
+``ops/fused_chain.py``, ``ops/fused_unit.py``) and once backward
+(``ops/fused_unit.py``); the port's three modules of those names share this
+one binding. Each of their public wrappers passes itself as ``counter``
+and so counts its own launches.
+
+``forward`` and ``backward`` take the plain PyTorch version for tensors on
+the CPU and launch the CUDA kernel for tensors on the card, or raise: no
+path falls back. The plain versions follow the kernels, rounding where they
+round: in particular the column statistics come from the float32
+accumulator, not from the ``y`` that is stored in ``x``'s dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+BLOCK_ROWS = 128       # rows of y or dx, and of one partial sum, a block
+DW_TILE = 64           # the dW kernel's tile edge along K and along N
+DW_ROW_STEP = 32       # rows it consumes per step: a split's row multiple
+DW_TARGET_BLOCKS = 1056   # 8 blocks for each of an H100's 132 SMs
+MAX_GRID_Y = 65535
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32 accumulation; float64 for the CPU tests' float64 inputs."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def activation(x, a, b, relu):
+    """The prologue: ``[relu](x*a + b)`` in the accumulation dtype, rounded
+    to ``x``'s dtype; ``x`` itself without ``a``."""
+    if a is None:
+        return x
+    xh = x.to(a.dtype) * a + b
+    if relu:
+        xh = torch.relu(xh)
+    return xh.to(x.dtype)
+
+
+def forward_plain(x: torch.Tensor, w: torch.Tensor,
+                  a: Optional[torch.Tensor] = None,
+                  b: Optional[torch.Tensor] = None, relu: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: ``y = act @ w`` accumulated in
+    float32 and stored in ``x``'s dtype, and the column sums of ``y`` and
+    ``y*y`` taken from the accumulator before that rounding."""
+    acc = acc_dtype(x.dtype)
+    yf = activation(x, a, b, relu).to(acc) @ w.to(acc)
+    return yf.to(x.dtype), yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+
+def folded_cotangent(gy, gs, gss, y):
+    """``g = gy + gs + 2*y*gss``: the two sums' cotangents folded into
+    ``gy``, from the saved (rounded) ``y``, rounded to ``y``'s dtype."""
+    acc = acc_dtype(y.dtype)
+    return (gy.to(acc) + gs + 2.0 * y.to(acc) * gss).to(y.dtype)
+
+
+def backward_plain(gy, gs, gss, y, x, w, consts=None, relu: bool = False):
+    """Plain version of the backward kernel. ``consts`` is ``None`` (no
+    prologue) or the float32 vectors ``(a, b, inv, minv)``. Returns
+    ``(dx, dw, dgamma, dbeta)``: ``dx`` in ``x``'s dtype, ``dw`` (K, N) in
+    the accumulation dtype, the last two ``None`` without ``consts``.
+
+    Rounds where the kernel rounds: ``g`` (from the saved, rounded ``y``)
+    and ``act`` go to ``x``'s dtype before the products; the ReLU mask
+    tests ``x*a + b > 0`` before any rounding.
+    """
+    acc = acc_dtype(x.dtype)
+    g = folded_cotangent(gy, gs, gss, y).to(acc)
+    gact = g @ w.to(acc).t()
+    if consts is None:
+        return gact.to(x.dtype), x.to(acc).t() @ g, None, None
+    a, b, inv, minv = consts
+    xf = x.to(acc)
+    gxh = gact
+    if relu:
+        gxh = torch.where(xf * a + b > 0, gact, torch.zeros_like(gact))
+    xhat = xf * inv + minv
+    return ((gxh * a).to(x.dtype), activation(x, a, b, relu).to(acc).t() @ g,
+            (gxh * xhat).sum(dim=0), gxh.sum(dim=0))
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _check_matrix(name, t, shape, dtype, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_problem(x, w):
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"expected x (M, K) and w (K, N), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernel takes bfloat16 and float32, got "
+                         f"{x.dtype}")
+    m, k = x.shape
+    n = w.shape[1]
+    if m < 1 or k % 8 or n % 8:
+        raise ValueError(f"the kernel needs K and N to be multiples of 8 "
+                         f"(16-byte chunks), got M={m} K={k} N={n}")
+    if m > MAX_GRID_Y * BLOCK_ROWS:
+        raise ValueError(f"at most {MAX_GRID_Y * BLOCK_ROWS} rows per "
+                         f"launch, got {m}")
+    _check_matrix("x", x, (m, k), x.dtype, x.device)
+    if w.dtype != x.dtype or w.device != x.device:
+        raise ValueError(f"w must be {x.dtype} on {x.device}, got "
+                         f"{w.dtype} on {w.device}")
+    return m, k, n
+
+
+def _weight_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (K, N) as the kernels read it: Wt (N, K) row-major, the layout
+    of a 1x1 conv's OIHW weight. A view when ``w`` is the transpose of such
+    a weight; otherwise one small copy."""
+    wt = w.t()
+    if not wt.is_contiguous() or wt.data_ptr() % 16:
+        wt = wt.contiguous()
+    return wt
+
+
+def _vector(name, v, size, device):
+    v = v.detach()
+    if v.dtype != torch.float32 or tuple(v.shape) != (size,):
+        raise ValueError(f"{name} must be float32 ({size},), got "
+                         f"{v.dtype} {tuple(v.shape)}")
+    if v.device != device:
+        raise ValueError(f"{name} is on {v.device}, expected {device}")
+    return v.contiguous()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
+    """``(y, sum, sumsq)`` of the forward function. ``a`` and ``b`` (K,)
+    float32 switch the prologue on. Adds one to ``counter.launches`` where
+    it launches the kernel."""
+    if x.device.type == "cpu":
+        return forward_plain(x, w, a, b, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    m, k, n = _check_problem(x, w)
+    wt = _weight_rows(w)
+    normalize = a is not None
+    if normalize:
+        a = _vector("a", a, k, x.device)
+        b = _vector("b", b, k, x.device)
+    from resnet_tpu_torch._build import load_library
+    lib = load_library("matmul_stats")
+    grid_m = -(-m // BLOCK_ROWS)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    psum = torch.empty((grid_m, n), dtype=torch.float32, device=x.device)
+    psumsq = torch.empty_like(psum)
+    with torch.cuda.device(x.device):
+        err = lib.matmul_stats_launch(
+            x.data_ptr(), wt.data_ptr(),
+            a.data_ptr() if normalize else None,
+            b.data_ptr() if normalize else None,
+            y.data_ptr(), psum.data_ptr(), psumsq.data_ptr(), m, k, n,
+            _DTYPE_CODES[x.dtype], int(normalize), int(relu),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "matmul_stats")
+    counter.launches += 1
+    return y, psum.sum(dim=0), psumsq.sum(dim=0)
+
+
+def dw_splits(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(splits, rows per split) of the dW kernel: enough splits of the M
+    rows that about ``DW_TARGET_BLOCKS`` blocks exist whatever K*N is, each
+    split at least 256 rows and a multiple of the kernel's row step."""
+    tiles = -(-k // DW_TILE) * -(-n // DW_TILE)
+    splits = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-m // 256)))
+    per_split = -(-m // splits)
+    rows = -(-per_split // DW_ROW_STEP) * DW_ROW_STEP
+    return -(-m // rows), rows
+
+
+def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
+             counter):
+    """``(dx, dw, dgamma, dbeta)`` of the backward function; arguments and
+    results as ``backward_plain``. Takes every shape the forward takes: no
+    fit rule. Adds one to ``counter.launches`` where it launches the
+    kernels (one launch function starts both on the current stream)."""
+    if x.device.type == "cpu":
+        return backward_plain(gy, gs, gss, y, x, w, consts, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    m, k, n = _check_problem(x, w)
+    wt = _weight_rows(w)
+    _check_matrix("gy", gy, (m, n), x.dtype, x.device)
+    _check_matrix("y", y, (m, n), x.dtype, x.device)
+    gs = _vector("gs", gs, n, x.device)
+    gss = _vector("gss", gss, n, x.device)
+    normalize = consts is not None
+    if normalize:
+        a, b, inv, minv = (_vector(name, v, k, x.device) for name, v in
+                           zip(("a", "b", "inv", "minv"), consts))
+    grid_m = -(-m // BLOCK_ROWS)
+    splits, rows = dw_splits(m, k, n)
+    dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    dwt_part = torch.empty((splits, n, k), dtype=torch.float32,
+                           device=x.device)
+    pdgamma = pdbeta = None
+    if normalize:
+        pdgamma = torch.empty((grid_m, k), dtype=torch.float32,
+                              device=x.device)
+        pdbeta = torch.empty_like(pdgamma)
+    from resnet_tpu_torch._build import load_library
+    lib = load_library("matmul_stats_bwd")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.matmul_stats_bwd_launch(
+            gy.data_ptr(), y.data_ptr(), x.data_ptr(), wt.data_ptr(),
+            gs.data_ptr(), gss.data_ptr(),
+            *((a.data_ptr(), b.data_ptr(), inv.data_ptr(), minv.data_ptr())
+              if normalize else (None,) * 4),
+            dx.data_ptr(), ptr(pdgamma), ptr(pdbeta), dwt_part.data_ptr(),
+            m, k, n, splits, rows, _DTYPE_CODES[x.dtype], int(normalize),
+            int(relu), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "matmul_stats_bwd")
+    counter.launches += 1
+    dw = dwt_part.sum(dim=0).t()          # (K, N) view of dW^T (N, K)
+    if not normalize:
+        return dx, dw, None, None
+    return dx, dw, pdgamma.sum(dim=0), pdbeta.sum(dim=0)

@@ -117,3 +117,193 @@ def test_train_step_launches_the_kernel(cuda):
     assert fused_crop_mirror_normalize.launches == before + 2
     assert state.step == 2 and float(m["count"]) == 8
     assert torch.isfinite(m["loss_sum"])
+
+
+# ---------------------------------------------------------------------------
+# the fused 1x1-conv kernels (csrc/matmul_stats.cu, matmul_stats_bwd.cu)
+# against their plain versions
+# ---------------------------------------------------------------------------
+
+# elementwise outputs: one bf16 ulp (2^-7) where the two round on either
+# side of a boundary, summation order only in float32; sums: 2e-5 of the
+# sum of the terms' magnitudes, bounded from above by Cauchy-Schwarz where
+# the terms are products
+_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# (M, K, N): one block and less, ragged M over several blocks with K, N off
+# the tile, and a shape with several dW splits
+MM_SHAPES = [(96, 32, 64), (333, 72, 40), (4100, 64, 128)]
+
+
+def _mm_inputs(device, m, k, n, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g)
+    x = randn(m, k).to(dtype)
+    w = (randn(n, k) * (2.0 / k) ** 0.5).to(dtype).t()
+    bn = dict(mean=randn(k) * 0.2, var=randn(k).abs() + 0.5,
+              gamma=1 + 0.1 * randn(k), beta=0.1 * randn(k))
+    cots = dict(gy=randn(m, n).to(dtype), gs=randn(n) * 0.1,
+                gss=randn(n) * 0.01)
+    to = lambda d: {name: v.to(device) for name, v in d.items()}
+    return x.to(device), w.to(device), to(bn), to(cots)
+
+
+def _assert_elementwise(got, want, dtype):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=_RTOL[dtype],
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def _assert_sums(got, want, terms):
+    assert bool(((got - want).abs() <= 2e-5 * terms).all()), \
+        float(((got - want).abs() / terms).max())
+
+
+def _consts(bn, eps=2e-5):
+    inv = torch.rsqrt(bn["var"] + eps)
+    a = bn["gamma"] * inv
+    return a, bn["beta"] - bn["mean"] * a, inv, -bn["mean"] * inv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MM_SHAPES, ids=str)
+@pytest.mark.parametrize("mode", ["plain", "norm", "norm-relu"])
+def test_forward_kernel_matches_plain_version(cuda, mode, shape, dtype):
+    from resnet_tpu_torch.ops import fused_chain as fc
+    from resnet_tpu_torch.ops import fused_convbn as cb
+    from resnet_tpu_torch.ops import fused_unit as fu
+    x, w, bn, _ = _mm_inputs(cuda, *shape, dtype)
+    if mode == "plain":
+        pairs = [(cb.matmul_with_stats, lambda: cb.matmul_with_stats(x, w)),
+                 (fu.matmul_stats, lambda: fu.matmul_stats(x, w))]
+        want = cb.matmul_with_stats_plain(x, w)
+    else:
+        relu = mode == "norm-relu"
+        pairs = [(fc.normalized_matmul_with_stats,
+                  lambda: fc.normalized_matmul_with_stats(x, w, **bn,
+                                                          relu=relu)),
+                 (fu.norm_relu_matmul_stats,
+                  lambda: fu.norm_relu_matmul_stats(x, w, *bn.values(), 2e-5,
+                                                    relu))]
+        want = fc.normalized_matmul_with_stats_plain(x, w, **bn, relu=relu)
+    for wrapper, call in pairs:
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        _assert_elementwise(got[0], want[0], dtype)
+        yf = want[0].float()
+        _assert_sums(got[1], want[1], yf.abs().sum(0))
+        _assert_sums(got[2], want[2], (yf * yf).sum(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MM_SHAPES, ids=str)
+@pytest.mark.parametrize("mode", ["plain", "norm", "norm-relu"])
+def test_backward_kernel_matches_plain_version(cuda, mode, shape, dtype):
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    x, w, bn, cots = _mm_inputs(cuda, *shape, dtype, seed=1)
+    consts = None if mode == "plain" else _consts(bn)
+    relu = mode == "norm-relu"
+    a, b = (None, None) if consts is None else consts[:2]
+    y = mk.forward_plain(x, w, a, b, relu)[0]
+    args = (cots["gy"], cots["gs"], cots["gss"], y, x, w, consts, relu)
+    before = fu.fused_backward.launches
+    got = fu.fused_backward(*args)
+    torch.cuda.synchronize()
+    assert fu.fused_backward.launches == before + 1
+    want = fu.fused_backward_plain(*args)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert got[1].shape == (shape[1], shape[2])
+    _assert_elementwise(got[0], want[0], dtype)
+    g = mk.folded_cotangent(cots["gy"], cots["gs"], cots["gss"], y).float()
+    act = mk.activation(x, a, b, relu).float()
+    _assert_sums(got[1], want[1], torch.outer(act.norm(dim=0), g.norm(dim=0)))
+    if consts is None:
+        assert got[2] is None and got[3] is None
+    else:
+        gxh = want[0].float().abs() / a.abs()
+        xhat = (x.float() * consts[2] + consts[3]).abs()
+        _assert_sums(got[2], want[2], (gxh * xhat).sum(0))
+        _assert_sums(got[3], want[3], gxh.sum(0))
+
+
+def test_matmul_wrappers_reject_bad_input(cuda):
+    from resnet_tpu_torch.ops import fused_convbn as cb
+    from resnet_tpu_torch.ops import fused_unit as fu
+    x, w, bn, cots = _mm_inputs(cuda, 96, 32, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 and float32"):
+        cb.matmul_with_stats(x.half(), w.half())
+    with pytest.raises(ValueError, match="w must be"):
+        cb.matmul_with_stats(x, w.float())
+    with pytest.raises(ValueError, match="w must be"):
+        cb.matmul_with_stats(x, w.cpu())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cb.matmul_with_stats(x[:, :20].contiguous(), w[:20])
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.matmul_with_stats(x[::2], w)
+    with pytest.raises(ValueError, match="x \\(M, K\\) and w \\(K, N\\)"):
+        cb.matmul_with_stats(x, w[:16])
+    with pytest.raises(ValueError, match="bfloat16 and float32"):
+        fu.matmul_stats(x.double(), w.double())
+    y = cb.matmul_with_stats(x, w)[0]
+    with pytest.raises(ValueError, match="gy must be"):
+        fu.fused_backward(cots["gy"][:, :32], cots["gs"], cots["gss"], y, x,
+                          w)
+    with pytest.raises(ValueError, match="gs must be"):
+        fu.fused_backward(cots["gy"], cots["gs"][:8], cots["gss"], y, x, w)
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "norelu"])
+def test_autograd_functions_match_autograd_through_the_plain_ops(cuda, relu):
+    """The two ``autograd.Function``s with the CUDA backward against
+    ``backend="xla"`` (plain forward, plain backward) in float32, all six
+    gradients, under random cotangents for y and both sums."""
+    from resnet_tpu_torch.ops import fused_unit as fu
+    x, w, bn, cots = _mm_inputs(cuda, 333, 72, 40, torch.float32, seed=2)
+
+    def grads(backend):
+        leaves = [t.clone().requires_grad_() for t in
+                  (x, w.contiguous(), *bn.values())]
+        out_a = fu.matmul_stats(leaves[0], leaves[1], backend)
+        out_b = fu.norm_relu_matmul_stats(*leaves, 2e-5, relu, backend)
+        loss = sum((o * c).sum() for out in (out_a, out_b)
+                   for o, c in zip(out, cots.values()))
+        return torch.autograd.grad(loss, leaves)
+
+    for got, want in zip(grads("pallas"), grads("xla")):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_chain_train_step_launches_the_kernels(cuda):
+    """One train call of a small v1 bottleneck net (two stages of two
+    units, kernel-sized widths) through the chain: per step K4f runs once
+    for every conv1 and projection (4 + 2) and every conv3 (4), K4b once
+    for each of them."""
+    from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.models.resnet import ResNet
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    cfg = imagenet_resnet50()
+    cfg.train.bn_ema = False
+    cfg.train.unit_chain = "pallas"
+    cfg.data.image_shape = (32, 32, 3)
+    model = ResNet(units=(2, 2), filters=(32, 64, 128), num_classes=1000,
+                   bottleneck=True, stem_s2d=True, dtype=torch.bfloat16,
+                   unit_chain="pallas")
+    state = create_train_state(cfg, device=cuda, model=model)
+    step = make_train_step(augment_fn=make_augment_fn(cfg),
+                           steps_per_dispatch=2)
+    batch = {"image": torch.randint(0, 256, (2, 8, 40, 48, 3),
+                                    dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 1000, (2, 8), device=cuda)}
+    wrappers = (fu.matmul_stats, fu.norm_relu_matmul_stats, fu.fused_backward)
+    before = [w.launches for w in wrappers]
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [12, 8, 20]
+    assert state.step == 2 and torch.isfinite(m["loss_sum"])
