@@ -4,18 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``resnet_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card at the training shapes and
-times it there, and drives the ``imagenet_resnet50`` training step at full
-width (ResNet-50, batch 128, bf16, six steps per call) through the port's
-entry points on four execution paths: the preset's bn-ema path, the chain
-units (``unit_chain="pallas"``), the fused conv+BN units
+against its plain PyTorch version on the card at the shapes its path gives
+it and times it there, and drives the ``imagenet_resnet50`` training step
+at full width (ResNet-50, batch 128, bf16, six steps per call) through the
+port's entry points on four execution paths: the preset's bn-ema path, the
+chain units (``unit_chain="pallas"``), the fused conv+BN units
 (``fused_convbn``) and, beside them, the full-batch-BN path both replace.
-It checks one float32 step of each path against the port's CPU path on a
-small input, and runs one eval step. Each phase prints one JSON line; a
-failed check raises and the script exits non-zero. The last lines are the
-kernels line, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
-package.
+It checks one float32 step of each path, and of the subsampled and grouped
+BatchNorm modes, against the port's CPU path on a small input, and runs
+one eval step. Then the two probes: ``reduce_probe`` (the BatchNorm
+backward's sum pair, K5, at ResNet-50's bs256 shapes) and ``trace_probe``
+(device time by kernel of the bs256 ``bn_subsample=8`` train step). Each
+phase prints one JSON line; a failed check raises and the script exits
+non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or of the JAX package.
 
 ``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
 kernel); with no arguments every phase runs.
@@ -31,6 +34,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -66,13 +70,6 @@ def require(cond, what):
         raise AssertionError(what)
 
 
-# device cycles of a spin kernel put in front of every timed run (about
-# 0.2 ms): while the card spins, the host enqueues the start event, the
-# launches of ``fn`` and the end event, so that the events bracket device
-# work and not the host's launch gaps, which vary with the host's load
-SPIN_CYCLES = 400_000
-
-
 @contextlib.contextmanager
 def full_float32():
     """TF32 off for float32 convolutions and matrix products (every float32
@@ -87,24 +84,6 @@ def full_float32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
-
-
-def cuda_median_ms(fn, runs=25, flush=None):
-    """Median of ``runs`` CUDA-event timings of ``fn()``; ``flush`` is
-    written before each run so that its inputs come from HBM, not L2."""
-    times = []
-    for _ in range(runs):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def aug_inputs(cfg_data, gen, n, contrast_illum, canvas_side=CANVAS,
@@ -167,6 +146,7 @@ def check_augment_kernel(cfg):
     from resnet_tpu_torch.ops.augment_fused import (
         fused_crop_mirror_normalize as k1,
         fused_crop_mirror_normalize_reference as k1_plain)
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for contrast_illum in (False, True):
@@ -203,7 +183,7 @@ def check_augment_kernel(cfg):
     canvas, rows, data = aug_inputs(cfg.data, gen, BATCH, False)
     args = (canvas, rows, (OUT, OUT), data.mean_rgb, data.std_rgb,
             torch.bfloat16)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
     ms = cuda_median_ms(lambda: k1(*args, s2d=True, hsl=True), flush=flush)
     plain_ms = cuda_median_ms(lambda: k1_plain(*args, s2d=True, hsl=True),
                               flush=flush)
@@ -221,12 +201,13 @@ def check_augment_kernel(cfg):
     return worst, timing
 
 
-def reference_check(phase, **train_overrides):
-    """One float32 train step of full-width ResNet-50 on a small input, on
-    the card (through the kernels) and on the CPU (through their plain
-    versions) from the same weights and rows: the CPU path is the one the
-    tests hold against the JAX package. ``train_overrides`` set fields of
-    ``cfg.train`` (the execution-path switches)."""
+def reference_check(phase, n=8, **train_overrides):
+    """One float32 train step of full-width ResNet-50 on a small input
+    (``n`` images), on the card (through the kernels) and on the CPU
+    (through their plain versions) from the same weights and rows: the CPU
+    path is the one the tests hold against the JAX package.
+    ``train_overrides`` set fields of ``cfg.train`` (the execution-path and
+    BatchNorm switches)."""
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
@@ -236,7 +217,6 @@ def reference_check(phase, **train_overrides):
     cfg.data.image_shape = (96, 96, 3)
     for name, value in train_overrides.items():
         setattr(cfg.train, name, value)
-    n = 8
     gen = torch.Generator(device="cuda").manual_seed(1)
     canvas, rows, _ = aug_inputs(cfg.data, gen, n, False, canvas_side=112,
                                  out=96)
@@ -495,8 +475,9 @@ def time_matmul_kernels(ops_a, ops_b):
     from resnet_tpu_torch.ops import fused_convbn as cb
     from resnet_tpu_torch.ops import fused_unit as fu
     from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
     gen = torch.Generator(device="cuda").manual_seed(4)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
     dtype = torch.bfloat16
     count_a = {s: ops_a.count(s) for s in dict.fromkeys(ops_a)}
     count_b = {s: ops_b.count(s) for s in dict.fromkeys(ops_b)}
@@ -589,6 +570,142 @@ def k3_path(ops_b):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# K5, the BatchNorm backward's sum pair, and the two probes
+# ---------------------------------------------------------------------------
+
+REDUCE_PROBE_ITERS = 10
+
+
+def library_sums(gy, x, mean, inv, weight):
+    """K5's pair by the one PyTorch call that computes it, the column
+    reduction of BatchNorm's backward: its grad_bias is Σ gy and its
+    grad_weight Σ gy·(x−mean)·inv (``weight``: ones, float32). Checked and
+    timed here as the library's number; the port never calls it."""
+    _, _, s2, s1 = torch.batch_norm_backward_reduce(
+        gy, x, mean, inv, weight, False, True, True)
+    return s1, s2
+
+
+def check_k5():
+    """K5 and the library call against K5's plain version at the reduce
+    probe's 8 shapes in bf16 and at 4096x128 in float32, with random mean
+    and inv in [0.5, 2]; two launches on the same input give the same bits.
+    Returns K5's worst |diff| of either sum."""
+    from resnet_tpu_torch.tools import reduce_probe as rp
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    cases = [(shape, torch.bfloat16) for shape in rp.SHAPES] \
+        + [((4096, 128), torch.float32)]
+    for (m, c), dtype in cases:
+        gy = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+        x = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+        mean = torch.randn((c,), generator=gen, device="cuda") * 0.2
+        inv = 0.5 + 1.5 * torch.rand((c,), generator=gen, device="cuda")
+        got = rp.cuda_sums(gy, x, mean, inv)
+        again = rp.cuda_sums(gy, x, mean, inv)
+        want = rp.torch_sums(gy, x, mean, inv)
+        library = library_sums(gy, x, mean, inv, torch.ones_like(mean))
+        torch.cuda.synchronize()
+        require(all(g.dtype == torch.float32 and tuple(g.shape) == (c,)
+                    and bool(torch.isfinite(g).all()) for g in got),
+                f"k5 outputs at {(m, c)}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"k5 is not deterministic at {(m, c)}")
+        bounds = rp.sum_bounds(gy, x, mean, inv)
+        results = {name: compare(g, w, bound) for name, g, w, bound in zip(
+            ("s1", "s2"), got, want, bounds)}
+        worst = max(worst, results["s1"][1], results["s2"][1])
+        results.update({name: compare(g, w, bound) for name, g, w, bound
+                        in zip(("library_s1", "library_s2"), library, want,
+                               bounds)})
+        report("k5_check", results, dtype=str(dtype), shape=[m, c],
+               splits=rp.sum_splits(m, c)[0], bar_of_sum_abs=rp.SUM_TOL)
+        del gy, x
+    return worst
+
+
+def reduce_probe_phase():
+    """The port's reduce probe, as ``python -m
+    resnet_tpu_torch.tools.reduce_probe --iters 10`` runs it, with K5's
+    launch count set to 0 just before and read just after; then the library
+    call timed the same way (bf16 inputs from seed 0, L2 flushed before
+    each run) at each shape. Returns K5's sums over the 8 shapes (ms, plain
+    ms, library ms, bound ms) and its launches."""
+    from resnet_tpu_torch.tools import reduce_probe as rp
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
+    rp.cuda_sums.launches = 0
+    rows = rp.probe(iters=REDUCE_PROBE_ITERS)
+    torch.cuda.synchronize()
+    launches = rp.cuda_sums.launches
+    by_shape = {}
+    for row in rows:
+        by_shape.setdefault(tuple(row["shape"]), {})[row["route"]] = row
+    require(sorted(by_shape) == sorted(rp.SHAPES)
+            and all(set(v) == {"torch", "cuda"} for v in by_shape.values()),
+            "the reduce probe did not time both routes at every shape")
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda").sum
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                             bound_ms=0.0)
+    for m, c in rp.SHAPES:
+        routes = by_shape[(m, c)]
+        gy = torch.randn((m, c), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x = torch.randn((m, c), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        mean, inv, weight = (torch.full((c,), v, device="cuda")
+                             for v in (0.0, 1.0, 1.0))
+        library_sums(gy, x, mean, inv, weight)             # warm
+        library_ms = cuda_median_ms(
+            lambda: library_sums(gy, x, mean, inv, weight),
+            runs=REDUCE_PROBE_ITERS, flush=flush)
+        shapes.append(dict(shape=[m, c], cuda_ms=routes["cuda"]["ms"],
+                           torch_ms=routes["torch"]["ms"],
+                           library_ms=library_ms,
+                           cuda_gb_per_s=routes["cuda"]["gb_per_s"],
+                           torch_gb_per_s=routes["torch"]["gb_per_s"],
+                           library_gb_per_s=2 * m * c * 2 / library_ms / 1e6,
+                           bound_ms=routes["cuda"]["bound_ms"],
+                           splits=rp.sum_splits(m, c)[0]))
+        total["ms"] += routes["cuda"]["ms"]
+        total["plain_ms"] += routes["torch"]["ms"]
+        total["library_ms"] += library_ms
+        total["bound_ms"] += routes["cuda"]["bound_ms"]
+        del gy, x
+    require(launches > 0, "the reduce probe launched K5 no time")
+    emit(phase="reduce_probe", iters=REDUCE_PROBE_ITERS, launches=launches,
+         shapes=shapes, step_sum=total, card=nvidia_smi_line())
+    return dict(total, launches=launches)
+
+
+def trace_probe_phase(steps=5, warmup=3):
+    """The port's trace probe at its defaults (ResNet-50, batch 256, bf16,
+    ``bn_subsample=8``, standard stem, the augmentation kernel in the
+    standard layout), traced into a temporary directory. K1's launch count
+    must move by one a step."""
+    from resnet_tpu_torch.ops.augment_fused import \
+        fused_crop_mirror_normalize as k1
+    from resnet_tpu_torch.tools import trace_probe as tp
+    k1.launches = 0
+    with trace_dir() as logdir:
+        run = tp.trace_train_step(steps=steps, warmup=warmup, logdir=logdir)
+        launches = k1.launches
+        summary = tp.parse_trace(logdir, top=25, steps=steps)
+    torch.cuda.empty_cache()
+    require(summary is not None, "the trace holds no kernel events")
+    require(launches == warmup + steps, f"K1 launched {launches} times in "
+            f"{warmup + steps} steps")
+    require(math.isfinite(run["loss"]), f"non-finite loss {run['loss']}")
+    emit(phase="trace_probe", model="resnet50", batch=256, bn_subsample=8,
+         steps=steps, warmup=warmup, k1_launches=launches,
+         device_ms_per_step=summary["ms_per_step"],
+         untraced_step_ms=run["untraced_step_ms"],
+         traced_wall_ms_per_step=run["traced_wall_ms"] / steps,
+         grouped_ms_per_step=summary["groups"], top=summary["top"][:10],
+         loss=run["loss"], card=nvidia_smi_line())
+
+
 # device-time categories of the traced call, matched on kernel names in
 # this order
 KERNEL_GROUPS = (
@@ -603,24 +720,38 @@ KERNEL_GROUPS = (
 )
 
 
+def trace_dir():
+    """A temporary directory for a chrome trace, inside the checkout's
+    ignored build directory; removed when the ``with`` block ends."""
+    from resnet_tpu_torch import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="trace_", dir=_build.BUILD_DIR)
+
+
 def profile_call(phase, step, state, batch, images, untraced_ms):
     """One more train call under torch.profiler: device time by kernel
     group, and the device's busy share of an untraced call (device time
     over the untraced calls' median wall time; the traced call's own wall
-    time carries the tracer's overhead)."""
-    from torch.profiler import ProfilerActivity, profile
+    time carries the tracer's overhead). The per-kernel sums are the
+    profiler module's reading of the exported chrome trace; device time
+    counts kernels and the copy engines' copies and fills, as the
+    profiler's CUDA events did before, and the copies' share is reported
+    apart."""
+    from resnet_tpu_torch.utils.profiler import (DEVICE_CATEGORIES,
+                                                 kernel_times, load_trace,
+                                                 maybe_trace, newest_trace)
     torch.cuda.synchronize()
-    tic = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - tic) * 1e3
-    by_kernel = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] = (by_kernel.get(evt.name, 0.0)
-                                   + evt.time_range.elapsed_us() / 1e3)
+    with trace_dir() as logdir:
+        with maybe_trace(logdir):
+            tic = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - tic) * 1e3
+        trace = load_trace(newest_trace(logdir))
+    total_us, _ = kernel_times(trace, DEVICE_CATEGORIES)
+    copies_ms = (sum(total_us.values())
+                 - sum(kernel_times(trace)[0].values())) / 1e3
+    by_kernel = {name: us / 1e3 for name, us in total_us.items()}
     groups = {}
     for name, ms in by_kernel.items():
         group = next((g for g, keys in KERNEL_GROUPS
@@ -633,7 +764,7 @@ def profile_call(phase, step, state, batch, images, untraced_ms):
          device_busy_ms=busy_ms if busy_ms else "not measured",
          device_busy_share=(busy_ms / untraced_ms if busy_ms
                             else "not measured"),
-         device_ms_by_group=groups,
+         memcpy_memset_ms=copies_ms, device_ms_by_group=groups,
          top_kernels=[{"name": n[:90], "ms": ms} for n, ms in top])
 
 
@@ -790,6 +921,10 @@ def main(argv=None):
         step_ms = time_matmul_kernels(ops_a, ops_b)
     if on("k3_path"):
         k3_launches = k3_path(ops_b)
+    if on("k5_check"):
+        k5_worst = check_k5()
+    if on("reduce_probe"):
+        k5_probe = reduce_probe_phase()
     if on("reference"):
         reference_check("reference_check")
     if on("chain_reference"):
@@ -798,6 +933,13 @@ def main(argv=None):
     if on("fused_reference"):
         reference_check("fused_reference_check", bn_ema=False,
                         fused_convbn=True)
+    # 16 images: the statistics of bn_subsample=8 come from two of them
+    if on("subsample_reference"):
+        reference_check("subsample_reference_check", n=16, bn_ema=False,
+                        bn_subsample=8)
+    if on("grouped_reference"):
+        reference_check("grouped_reference_check", n=16, bn_ema=False,
+                        bn_subsample=8, bn_grouped=True)
     if on("main"):
         main_l = train_path("main_path", cfg, 3, {k1: 1}, eval_after=True)
     if on("chain"):
@@ -808,6 +950,8 @@ def main(argv=None):
         fused_l = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
     if on("fullbatch"):
         train_path("fullbatch_path", full, 2, {k1: 1})
+    if on("trace_probe"):
+        trace_probe_phase()
 
     if not only:
         def mm_kernel(name, source, replaces, launches, err, t):
@@ -840,6 +984,15 @@ def main(argv=None):
             mm_kernel("fused_backward", "matmul_stats_bwd.cu",
                       "resnet_tpu/ops/fused_unit.py:138",
                       chain_l[fu.fused_backward], bwd_worst, step_ms["k4b"]),
+            # ms, plain_ms, bound_ms and library_ms: sums over the reduce
+            # probe's 8 shapes, bf16
+            dict(name="cuda_sums", route="cuda",
+                 source="resnet_tpu_torch/csrc/bn_sums.cu",
+                 replaces="tools/reduce_probe.py:62",
+                 launches=k5_probe["launches"], max_abs_err=k5_worst,
+                 ms=k5_probe["ms"], plain_ms=k5_probe["plain_ms"],
+                 bound_ms=k5_probe["bound_ms"], bound_by="bytes",
+                 library_ms=k5_probe["library_ms"]),
         ]
         require(all(kern["launches"] > 0 for kern in kernels),
                 "a kernel of the paths was launched no time")

@@ -42,6 +42,11 @@ SIGNATURES = {
         "fused_crop_mirror_normalize_launch": (
             [_P, _P, _P] + [_I] * 5 + [_F] * 6 + [_I] * 5 + [_P], _I),
     },
+    "bn_sums": {
+        # gy, x, mean, inv, ps1, ps2; M, C, splits, rows_per_split, dtype;
+        # stream
+        "bn_sums_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    },
     "matmul_stats": {
         # x, wt, a, b, y, psum, psumsq; M, K, N, dtype, normalize, relu;
         # stream

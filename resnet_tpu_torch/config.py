@@ -77,6 +77,17 @@ class TrainConfig:
     mom: float = 0.9
     wd: float = 1e-4
     dtype: str = "float32"            # float32 | bfloat16 compute
+    bn_subsample: int = 1             # BN stats from batch//s leading images
+                                      # (s=8 at batch 256 = the reference's
+                                      # per-GPU 32-image stats sample count)
+    bn_grouped: bool = False          # with bn_subsample s: normalize s
+                                      # INDEPENDENT groups, each with its own
+                                      # stats — the exact single-chip analog
+                                      # of the reference's per-GPU BatchNorm
+    bn_stat_stride: int = 1           # BN stats from every s-th spatial
+                                      # row/column of ALL images (1/s² of the
+                                      # stats-sweep HBM traffic; keeps every
+                                      # image in the sample, unlike bnsub)
     bn_ema: bool = False              # live batch mean + stop-grad clamped var
     bn_ema_project: bool = True       # radial projection with bn_ema
     bn_ema_clamp: float = 1.0         # trust region vs the batch evidence

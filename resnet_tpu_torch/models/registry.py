@@ -49,24 +49,42 @@ def get_model(cfg: Config,
         raise NotImplementedError(
             "the port builds ImageNet ResNet v1 so far; v2, CIFAR and "
             "ResNeXt are not ported yet")
+    if t.bn_grouped and t.bn_subsample <= 1:
+        raise ValueError(
+            "--bn-grouped needs --bn-subsample > 1 (the number of "
+            "independent normalization groups)")
     if t.bn_ema and 0 < t.bn_ema_clamp < 1:
         raise ValueError(
             "--bn-ema-clamp is a trust-region RATIO: >= 1 (1.0 = normalize "
             "with the live batch evidence, larger = more running-stats "
             "slack), or 0 to disable clamping entirely")
-    if t.bn_ema and (t.fused_convbn or t.unit_chain != "off"):
-        # the fused/chain kernels compute batch statistics in their
-        # epilogues; silently ignoring either flag would run something
-        # other than what the flags say
+    if t.bn_ema and (t.bn_grouped or t.fused_convbn
+                     or t.unit_chain != "off"):
+        # grouped normalizes each group with its own batch statistics, the
+        # opposite of normalizing with running statistics; the fused/chain
+        # kernels compute batch statistics in their epilogues. Silently
+        # ignoring either flag would run something other than what the
+        # flags say
         raise ValueError(
             "--bn-ema does not compose with --bn-grouped, --fused-convbn "
             "or --unit-chain (those compute/apply batch statistics); "
             "drop one of the flags")
+    if t.unit_chain != "off" and (t.bn_subsample > 1
+                                  or t.bn_stat_stride > 1):
+        # the chain dataflow computes full-batch statistics in its
+        # epilogues; ignoring these knobs would run something other than
+        # what the flags say
+        raise ValueError(
+            "--unit-chain does not compose with --bn-subsample > 1 or "
+            "--bn-stat-stride > 1 (the chain computes full-batch BN stats "
+            "in-kernel); drop one of the flags")
     if generator is None:
         generator = torch.Generator().manual_seed(t.seed)
     return ResNet(units=units, filters=filters,
                   num_classes=cfg.data.num_classes, bottleneck=bottleneck,
                   bn_mom=m.bn_mom, bn_eps=m.bn_eps, dtype=DTYPES[t.dtype],
                   bn_ema=t.bn_ema, bn_ema_clamp=t.bn_ema_clamp,
-                  stem_s2d=t.stem_s2d, fused=t.fused_convbn,
-                  unit_chain=t.unit_chain, generator=generator)
+                  bn_subsample=t.bn_subsample, bn_grouped=t.bn_grouped,
+                  bn_stat_stride=t.bn_stat_stride, stem_s2d=t.stem_s2d,
+                  fused=t.fused_convbn, unit_chain=t.unit_chain,
+                  generator=generator)

@@ -14,8 +14,7 @@ units in train mode (``models/fused.py``, ``models/chain.py``); the modules
 that own the parameters and running statistics stay the same under every
 switch.
 
-Not ported yet: v2 units, the CIFAR stem, ResNeXt grouped convs, remat and
-the off-default BN switches (subsample, grouped, stat stride).
+Not ported yet: v2 units, the CIFAR stem, ResNeXt grouped convs and remat.
 """
 
 from __future__ import annotations
@@ -132,25 +131,43 @@ class StemConvS2D(Conv):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm with MXNet/flax semantics, in its full-batch and bn-ema
-    train modes (``SubsampleBatchNorm`` at ``subsample=1``).
+    """BatchNorm with MXNet/flax semantics and the train-mode statistic
+    modes of the JAX package's ``SubsampleBatchNorm``.
 
     Statistics are float32: ``mean = E[x]``, ``var = max(0, E[x²] - mean²)``
     and the running stats move as ``ra = m·ra + (1-m)·batch`` with the
     biased variance. ``F.batch_norm`` differs on both counts and is not
     used in train mode.
 
-    ``ema=True`` (bn-ema): normalize with the live batch mean, which keeps
-    its gradient, and a stop-gradient variance: the running variance read
-    before this step's refresh, clipped to ``[bvar/c², bvar·c² + eps]``
-    around the batch variance (``c = ema_clamp``; 0 disables the clip); the
-    running mean, clipped to ``(c-1)·σ`` of the batch mean, enters as a
-    constant offset. At ``c = 1`` both are the batch's own statistics.
+    Train-mode statistics come from the stat sample: the leading
+    ``k = max(1, n // subsample)`` images, and of those every
+    ``stat_stride``-th spatial row and column (``x[:k, :, ::s, ::s]``; at
+    ``subsample = stat_stride = 1`` the whole batch). They carry their
+    gradient, so only the sampled values receive the statistics' share.
+
+    ``grouped=True`` with ``subsample > 1``: the batch splits into
+    ``min(subsample, n)`` contiguous groups and each is normalized with the
+    statistics of its own (strided) sample, the semantics of per-device
+    BatchNorm over that many devices; the running stats move with the mean
+    over groups of the group statistics.
+
+    ``ema=True`` (bn-ema): normalize with the live mean of the stat sample,
+    which keeps its gradient, and a stop-gradient variance: the running
+    variance read before this step's refresh, clipped to
+    ``[bvar/c², bvar·c² + eps]`` around the sample's variance
+    (``c = ema_clamp``; 0 disables the clip); the running mean, clipped to
+    ``(c-1)·σ`` of the sample mean, enters as a constant offset. At
+    ``c = 1`` both are the sample's own statistics. ``grouped`` takes
+    precedence (the registry refuses the pair).
+
+    Eval mode normalizes with the running statistics in every mode.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 2e-5, ema: bool = False,
-                 ema_clamp: float = 1.0, dtype=torch.float32):
+                 ema_clamp: float = 1.0, subsample: int = 1,
+                 grouped: bool = False, stat_stride: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -158,6 +175,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
         self.ema, self.ema_clamp, self.dtype = ema, ema_clamp, dtype
+        self.subsample, self.grouped = subsample, grouped
+        self.stat_stride = stat_stride
 
     def _refresh(self, mean, var):
         m = self.momentum
@@ -165,15 +184,45 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
+    def _strided(self, t):
+        """Every ``stat_stride``-th row and column of the two trailing
+        (spatial) dims."""
+        s = self.stat_stride
+        return t if s <= 1 else t[..., ::s, ::s]
+
+    def _stat_sample(self, xf):
+        k = max(1, xf.shape[0] // self.subsample)
+        return self._strided(xf[:k] if k < xf.shape[0] else xf)
+
+    def _grouped_forward(self, xf):
+        n = xf.shape[0]
+        g = min(self.subsample, n)
+        if n % g:
+            raise ValueError(
+                f"grouped BN: batch {n} not divisible by {g} groups")
+        xs = xf.reshape(g, n // g, *xf.shape[1:])      # (g, n/g, C, H, W)
+        ss = self._strided(xs)
+        red = (1, 3, 4)
+        gmean = ss.mean(red)                           # (g, C)
+        gvar = ((ss * ss).mean(red) - gmean * gmean).clamp_min(0.0)
+        self._refresh(gmean.detach().mean(0), gvar.detach().mean(0))
+        inv = torch.rsqrt(gvar + self.eps) * self.weight
+        out = (xs - gmean[:, None, :, None, None]) \
+            * inv[:, None, :, None, None] + self.bias[:, None, None]
+        return out.reshape(xf.shape).to(self.dtype)
+
     def forward(self, x):
         dims = (0, 2, 3)
         xf = x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
+        elif self.grouped and self.subsample > 1:
+            return self._grouped_forward(xf)
         elif self.ema:
-            bmean_g = xf.mean(dims)
+            xs = self._stat_sample(xf)
+            bmean_g = xs.mean(dims)
             bmean = bmean_g.detach()
-            xs = xf.detach()
+            xs = xs.detach()
             bvar = ((xs * xs).mean(dims) - bmean * bmean).clamp_min(0.0)
             # the running stats as they were before this step's refresh
             mean = self.running_mean.clone()
@@ -188,8 +237,9 @@ class BatchNorm(nn.Module):
             self._refresh(bmean, bvar)
             mean = bmean_g + (mean - bmean)
         else:
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            xs = self._stat_sample(xf)
+            mean = xs.mean(dims)
+            var = ((xs * xs).mean(dims) - mean * mean).clamp_min(0.0)
             self._refresh(mean.detach(), var.detach())
         inv = torch.rsqrt(var + self.eps) * self.weight
         out = (xf - mean[:, None, None]) * inv[:, None, None] \
@@ -251,7 +301,9 @@ class ResidualUnit(nn.Module):
 
     def _forward_fused(self, x):
         """Train-mode bottleneck with the BN statistics of the three 1x1
-        convs fused into their products; the 3x3 and bn2 stay standard."""
+        convs fused into their products; the 3x3 and bn2 stay standard.
+        As in the JAX package, the fused BNs take full-batch statistics
+        whatever the statistic mode says; only bn2 follows it."""
         from resnet_tpu_torch.models.fused import fused_conv_bn
         shortcut = x
         if not self.dim_match:
@@ -278,13 +330,17 @@ class ResNet(nn.Module):
                  num_classes: int, bottleneck: bool, bn_mom: float = 0.9,
                  bn_eps: float = 2e-5, dtype=torch.float32,
                  bn_ema: bool = False, bn_ema_clamp: float = 1.0,
+                 bn_subsample: int = 1, bn_grouped: bool = False,
+                 bn_stat_stride: int = 1,
                  stem_s2d: bool = False, fused: bool = False,
                  unit_chain: str = "off",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype, self.stem_s2d = dtype, stem_s2d
         bn_kw = dict(momentum=bn_mom, eps=bn_eps, ema=bn_ema,
-                     ema_clamp=bn_ema_clamp, dtype=dtype)
+                     ema_clamp=bn_ema_clamp, subsample=bn_subsample,
+                     grouped=bn_grouped, stat_stride=bn_stat_stride,
+                     dtype=dtype)
         if stem_s2d:
             self.conv0 = StemConvS2D(3, filters[0], dtype=dtype)
         else:

@@ -307,3 +307,73 @@ def test_chain_train_step_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     assert [w.launches - b for w, b in zip(wrappers, before)] == [12, 8, 20]
     assert state.step == 2 and torch.isfinite(m["loss_sum"])
+
+
+# ---------------------------------------------------------------------------
+# K5, the BatchNorm backward's sum pair (csrc/bn_sums.cu), and the probes
+# ---------------------------------------------------------------------------
+
+# one block with idle row lanes; C = 200 (25 threads a row, 6 idle threads)
+# with ragged rows over several splits; C = 4096, two blocks across a row
+K5_SHAPES = [(37, 64), (5000, 200), (1500, 4096)]
+
+
+def _k5_inputs(device, m, c, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    gy = torch.randn(m, c, generator=g).to(dtype)
+    x = torch.randn(m, c, generator=g).to(dtype)
+    mean = torch.randn(c, generator=g) * 0.2
+    inv = 0.5 + 1.5 * torch.rand(c, generator=g)
+    return tuple(t.to(device) for t in (gy, x, mean, inv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=str)
+def test_bn_sums_kernel_matches_plain_version(cuda, shape, dtype):
+    """Each sum within 1e-5 of the sum of its terms' magnitudes per column
+    (float32 sums in another order), and the same bits on a second run."""
+    from resnet_tpu_torch.tools import reduce_probe as rp
+    args = _k5_inputs(cuda, *shape, dtype)
+    before = rp.cuda_sums.launches
+    got = rp.cuda_sums(*args)
+    torch.cuda.synchronize()
+    assert rp.cuda_sums.launches == before + 1
+    want = rp.torch_sums(*args)
+    for g, w, bound in zip(got, want, rp.sum_bounds(*args)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == (shape[1],)
+        assert bool(((g - w).abs() <= bound).all()), \
+            float(((g - w).abs() / bound).max())
+    again = rp.cuda_sums(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bn_sums_wrapper_rejects_bad_input(cuda):
+    from resnet_tpu_torch.tools import reduce_probe as rp
+    gy, x, mean, inv = _k5_inputs(cuda, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rp.cuda_sums(gy[:, :12].contiguous(), x[:, :12].contiguous(),
+                     mean[:12].contiguous(), inv[:12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rp.cuda_sums(gy[::2], x[::2], mean, inv)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        rp.cuda_sums(gy.half(), x.half(), mean, inv)
+
+
+def test_reduce_probe_check_prints_parity_ok(cuda, capsys):
+    from resnet_tpu_torch.tools import reduce_probe as rp
+    assert rp.main(["--check"]) == 0
+    assert "parity ok" in capsys.readouterr().out
+
+
+def test_trace_probe_reads_the_cards_kernel_events(cuda, tmp_path, capsys):
+    """A small program of the trace probe on the card: its chrome trace
+    holds kernel events, the augmentation kernel among them, once a
+    step."""
+    from resnet_tpu_torch.tools import trace_probe as tp
+    tp.trace_train_step(steps=2, warmup=1, batch_size=8, depth=18,
+                        logdir=str(tmp_path), device=cuda, image_side=64)
+    summary = tp.parse_trace(str(tmp_path), top=1000, steps=2)
+    assert summary is not None and summary["ms_per_step"] > 0
+    assert "fused_crop_mirror_normalize_kernel" in summary["groups"]
+    k1 = [e for e in summary["top"] if "fused_crop_mirror" in e["name"]]
+    assert k1 and k1[0]["count"] == 2

@@ -35,6 +35,8 @@ LABELS = np.array([1, 7, 3, 0, 9, 2, 5, 4])
 # the last stage's BN statistics; with fewer, E[x^2] - mean^2 cancels badly
 # enough in float32 that the two summation orders part beyond 1e-4
 TRAIN_X = (8, 32, 32, 12)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 def _randomize(variables, seed=0):
@@ -57,10 +59,12 @@ def _randomize(variables, seed=0):
 
 
 def _pair(x, bottleneck=True, stem_s2d=True, bn_ema=False,
-          dtype=(jnp.float32, torch.float32)):
-    """(jax module, jax variables, port model) with one set of weights."""
+          dtype=(jnp.float32, torch.float32), **bn_modes):
+    """(jax module, jax variables, port model) with one set of weights;
+    ``bn_modes``: ``bn_subsample``, ``bn_grouped``, ``bn_stat_stride``."""
     kw = dict(units=UNITS, filters=FILTERS[bottleneck], num_classes=10,
-              bottleneck=bottleneck, bn_ema=bn_ema, stem_s2d=stem_s2d)
+              bottleneck=bottleneck, bn_ema=bn_ema, stem_s2d=stem_s2d,
+              **bn_modes)
     jm = JaxResNet(dtype=dtype[0], **kw)
     shapes = jax.eval_shape(partial(jm.init, train=False),
                             jax.random.key(0), jnp.asarray(x))
@@ -103,10 +107,16 @@ def test_eval_logits_match(shape, bottleneck, stem_s2d):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("bn_ema", [False, True], ids=["full", "ema"])
-def test_train_logits_stats_and_grads_match(bn_ema):
+@pytest.mark.parametrize("bn", [
+    dict(),
+    dict(bn_ema=True),
+    dict(bn_subsample=4),
+    dict(bn_subsample=4, bn_grouped=True),
+    dict(bn_stat_stride=2),
+], ids=["full", "ema", "sub4", "grouped4", "stride2"])
+def test_train_logits_stats_and_grads_match(bn):
     x = _x(TRAIN_X)
-    jm, variables, model = _pair(x, bn_ema=bn_ema)
+    jm, variables, model = _pair(x, **bn)
 
     def loss_fn(params):
         logits, mut = jm.apply(
@@ -114,8 +124,11 @@ def test_train_logits_stats_and_grads_match(bn_ema):
             jnp.asarray(x), train=True, mutable=["batch_stats"])
         return jax_ce(logits, jnp.asarray(LABELS)), (logits, mut)
 
+    # XLA's backend optimisation takes ~5 s of a ~12 s compile on one core
+    # and nothing of the comparison needs it
     (_, (want_logits, mut)), jgrads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(variables["params"])
+        loss_fn, has_aux=True)).lower(variables["params"]).compile(
+            compiler_options=FAST_COMPILE)(variables["params"])
     want_grads, want_stats = jax_export(jgrads, mut["batch_stats"])
 
     model.train()
