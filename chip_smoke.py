@@ -14,7 +14,10 @@ It checks one float32 step of each path, and of the subsampled and grouped
 BatchNorm modes, against the port's CPU path on a small input, and runs
 one eval step. Then the two probes: ``reduce_probe`` (the BatchNorm
 backward's sum pair, K5, at ResNet-50's bs256 shapes) and ``trace_probe``
-(device time by kernel of the bs256 ``bn_subsample=8`` train step). Each
+(device time by kernel of the bs256 ``bn_subsample=8`` train step), and
+last the fused 1x1-conv kernels' timings at every ResNet-50 shape, with
+each kernel apart from the wrapper's partial sums from a profiled window
+a shape. Each
 phase prints one JSON line; a failed check raises and the script exits
 non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -281,12 +284,6 @@ def reference_check(phase, n=8, **train_overrides):
 MM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MM_ATOL_OF_MAX = 1e-5
 MM_SUM_TOL = 1e-5
-# op A shapes (no prologue): the narrowest, a wide-K stage-1 shape, the
-# deepest K, and the 1024x2048 projection; op B: all four conv3 shapes
-CHECK_SHAPES_A = ((401408, 64, 64), (401408, 256, 64), (6272, 2048, 512),
-                  (6272, 1024, 2048))
-CHECK_SHAPES_B = ((401408, 64, 256), (100352, 128, 512), (25088, 256, 1024),
-                  (6272, 512, 2048))
 
 
 def r50_op_shapes(model, batch, side):
@@ -346,9 +343,12 @@ def report(phase, results, **fields):
             f"{phase}: kernel disagrees with its plain version: {bad}")
 
 
-def check_forward_kernels():
-    """K2, K3 and K4f against their plain versions at ResNet-50's shapes,
-    in bf16 and in float32 (TF32 off). Returns name -> worst |diff| of y."""
+def check_forward_kernels(ops_a, ops_b):
+    """K2, K3 and K4f against their plain versions at every distinct shape
+    of ResNet-50's 1x1 convs, in bf16 and in float32 (TF32 off): K2 at
+    all of them (the fused path runs conv3 through it too), K4f at the op A
+    shapes without and the op B shapes with the prologue, K3 at the op B
+    shapes. Returns name -> worst |diff| of y."""
     from resnet_tpu_torch.ops import fused_chain as fc
     from resnet_tpu_torch.ops import fused_convbn as cb
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -371,16 +371,18 @@ def check_forward_kernels():
         worst[key] = max(worst[key], results["y"][1])
 
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in CHECK_SHAPES_A:
+        for shape in sorted(set(ops_a) | set(ops_b), reverse=True):
             x, w, _, _ = op_inputs(gen, *shape, dtype)
             want = mk.forward_plain(x, w)
             check("k2_check", "k2", cb.matmul_with_stats(x, w), want, dtype,
                   shape=shape)
+            if shape not in ops_a:
+                continue
             with torch.no_grad():
                 got = fu.matmul_stats(x, w, "pallas")
             check("k4f_check", "k4f", got, want, dtype, shape=shape,
                   normalize=False, relu=False)
-        for shape in CHECK_SHAPES_B:
+        for shape in sorted(set(ops_b), reverse=True):
             x, w, bn, _ = op_inputs(gen, *shape, dtype)
             for relu in (True, False):
                 want = fc.normalized_matmul_with_stats_plain(
@@ -402,15 +404,17 @@ def backward_consts(bn, eps=2e-5):
     return a, bn["beta"] - bn["mean"] * a, inv, -bn["mean"] * inv
 
 
-def check_backward_kernel():
-    """K4b against its plain version: op A, op B with and without ReLU.
-    Returns the worst |diff| of dx."""
+def check_backward_kernel(ops_a, ops_b):
+    """K4b against its plain version at every distinct shape of
+    ResNet-50's 1x1 convs: op A, op B with and without ReLU. Returns the
+    worst |diff| of dx."""
     from resnet_tpu_torch.ops import fused_unit as fu
     from resnet_tpu_torch.ops import matmul_stats_cuda as mk
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
-    cases = [(s, False, False) for s in CHECK_SHAPES_A] \
-        + [(s, True, relu) for s in CHECK_SHAPES_B for relu in (True, False)]
+    cases = [(s, False, False) for s in sorted(set(ops_a), reverse=True)] \
+        + [(s, True, relu) for s in sorted(set(ops_b), reverse=True)
+           for relu in (True, False)]
     for dtype in (torch.bfloat16, torch.float32):
         for shape, normalize, relu in cases:
             x, w, bn, cots = op_inputs(gen, *shape, dtype)
@@ -445,7 +449,7 @@ def check_backward_kernel():
                         "op A returns no dgamma/dbeta")
             report("k4b_check", results, dtype=str(dtype), shape=shape,
                    normalize=normalize, relu=relu,
-                   dw_splits=mk.dw_splits(*shape)[0])
+                   dw_splits=mk.dw_plan(*shape)[1])
             worst = max(worst, results["dx"][1])
     return worst
 
@@ -467,10 +471,48 @@ def mm_bound(m, k, n, backward):
         "operations"
 
 
+def kernel_ms_by_group(fn, flush, want, calls=5):
+    """Device ms per call of each kernel ``fn`` launches, from one profiled
+    window of ``calls`` calls (L2 flushed before each): the profiler
+    module's reading of the chrome trace, keyed by ``kernel_group``, and
+    the number of calls it saw. ``want`` are kernel groups launched once a
+    call. Once a process has traced before, the tracer drops the first
+    call of a window (every group alike), so the sums are divided by the
+    calls the trace holds, not by ``calls``. At times it loses a window's
+    kernels altogether (one window in about 50 on the card); such a
+    window is taken again, up to three windows in all."""
+    from resnet_tpu_torch.utils.profiler import (kernel_group, kernel_times,
+                                                 load_trace, maybe_trace,
+                                                 newest_trace)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with trace_dir() as logdir:
+            with maybe_trace(logdir):
+                for _ in range(calls):
+                    flush()
+                    fn()
+                torch.cuda.synchronize()
+            us, count = kernel_times(load_trace(newest_trace(logdir)))
+        total, seen = {}, {}
+        for name, t in us.items():
+            key = kernel_group(name)
+            total[key] = total.get(key, 0.0) + t
+            seen[key] = seen.get(key, 0) + count[name]
+        traced = seen.get(want[0], 0)
+        if traced >= 2 and all(seen.get(k) == traced for k in want):
+            return {key: t / 1e3 / traced for key, t in total.items()}, traced
+    raise AssertionError(f"3 traces of {calls} calls each: the last holds "
+                         f"{seen} of {want}")
+
+
 def time_matmul_kernels(ops_a, ops_b):
     """Each distinct ResNet-50 shape, forward and backward, bf16: the
     kernel, its plain version, the bound, and ``torch.mm`` on the bare
-    product(s) as context. Returns per-step sums by kernel."""
+    product(s) as context; and from one profiled window each, the forward
+    kernel apart from the wrapper's ``psum.sum`` and the backward's dx
+    kernel, dW kernel and partial sums apart. Returns per-step sums by
+    kernel."""
     from resnet_tpu_torch.ops import fused_chain as fc
     from resnet_tpu_torch.ops import fused_convbn as cb
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -484,6 +526,8 @@ def time_matmul_kernels(ops_a, ops_b):
     zero = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                         ops_ms=0.0)
     step = {"k2": zero(), "k3": zero(), "k4f": zero(), "k4b": zero()}
+    parts = dict(fwd_kernel_ms=0.0, fwd_sums_ms=0.0, dx_kernel_ms=0.0,
+                 dw_kernel_ms=0.0, bwd_sums_ms=0.0)
 
     def add(key, times, ms, plain_ms, bound, by):
         step[key]["ms"] += times * ms
@@ -519,11 +563,23 @@ def time_matmul_kernels(ops_a, ops_b):
                     plain_ms
             add("k4f", times, ms, plain_ms, bound, by)
             add("k2", times, k2_ms, k2_plain, bound, by)
+            split, fwd_traced = kernel_ms_by_group(
+                (lambda: fu.norm_relu_matmul_stats(
+                    x, w, *bn.values(), 2e-5, True, "pallas")) if prologue
+                else (lambda: fu.matmul_stats(x, w, "pallas")), flush,
+                want=("matmul_stats_kernel",))
+            kernel_ms = split["matmul_stats_kernel"]
+            sums_ms = split.get("reduce_kernel", 0.0)
+            parts["fwd_kernel_ms"] += times * kernel_ms
+            parts["fwd_sums_ms"] += times * sums_ms
             emit(phase="k4f_timing", shape=shape, per_step=times,
                  normalize=prologue, relu=prologue, runs=25, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 torch_mm_ms=mm_ms, k2_ms=k2_ms,
-                 k3_ms=k3_ms if prologue else None)
+                 share_of_bound=bound / ms, torch_mm_ms=mm_ms, k2_ms=k2_ms,
+                 k3_ms=k3_ms if prologue else None,
+                 tile=mk.tile_plan(shape[0], shape[2])[0],
+                 traced_calls=fwd_traced, traced_kernel_ms=kernel_ms,
+                 traced_psum_sums_ms=sums_ms)
 
             y = mk.forward_plain(x, w, a, b, prologue)[0]
             args = (cots["gy"], cots["gs"], cots["gss"], y, x, w, consts,
@@ -534,16 +590,32 @@ def time_matmul_kernels(ops_a, ops_b):
             gy = cots["gy"]
             mm_ms = med(lambda: (torch.mm(gy, w.t()), torch.mm(x.t(), gy)))
             add("k4b", times, ms, plain_ms, bound, by)
+            split, bwd_traced = kernel_ms_by_group(
+                lambda: fu.fused_backward(*args), flush,
+                want=("bwd_dx_kernel", "bwd_dw_kernel"))
+            dx_ms, dw_ms = split["bwd_dx_kernel"], split["bwd_dw_kernel"]
+            sums_ms = split.get("reduce_kernel", 0.0)
+            parts["dx_kernel_ms"] += times * dx_ms
+            parts["dw_kernel_ms"] += times * dw_ms
+            parts["bwd_sums_ms"] += times * sums_ms
+            dw_tile, splits, _, _ = mk.dw_plan(*shape)
             emit(phase="k4b_timing", shape=shape, per_step=times,
                  normalize=prologue, relu=prologue, runs=25, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 torch_mm_ms=mm_ms, dw_splits=mk.dw_splits(*shape)[0])
+                 share_of_bound=bound / ms, torch_mm_ms=mm_ms,
+                 dx_tile=mk.tile_plan(shape[0], shape[1])[0],
+                 dw_tile=dw_tile, dw_splits=splits, traced_calls=bwd_traced,
+                 traced_dx_ms=dx_ms,
+                 traced_dw_ms=dw_ms, traced_partial_sums_ms=sums_ms)
     for key, t in step.items():
         t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t.pop("ops_ms") \
             else "operations"
         emit(phase=f"{key}_step_total", launches_per_step=(
             sum(count_b.values()) if key == "k3"
-            else sum(count_a.values()) + sum(count_b.values())), **t)
+            else sum(count_a.values()) + sum(count_b.values())),
+            share_of_bound=t["bound_ms"] / t["ms"], **t)
+    # K4f's and K4b's step sums split by kernel, from the profiled windows
+    emit(phase="k4_step_split", **parts)
     return step
 
 
@@ -710,8 +782,7 @@ def trace_probe_phase(steps=5, warmup=3):
 # this order
 KERNEL_GROUPS = (
     ("augment kernel", ("fused_crop_mirror_normalize",)),
-    ("fused 1x1-conv kernels", ("matmul_stats_kernel", "bwd_dx_kernel",
-                                "bwd_dw_kernel")),
+    ("fused 1x1-conv kernels", ("matmul_stats_", "bwd_dx_", "bwd_dw_")),
     ("conv and matmul", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90",
                          "wgrad", "dgrad", "implicit")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -868,6 +939,12 @@ def build_phase():
                            spill_store_bytes=sum(spills))
     emit(phase="build", seconds=seconds,
          libraries=sorted(p.name for p in libs.values()), ptxas=usage)
+    # the matrix kernels are laid out for at most 128 registers a thread;
+    # a spill would put their fragments through local memory
+    for name in ("matmul_stats", "matmul_stats_bwd"):
+        require(usage[name]["kernels"] > 0 and
+                usage[name]["spill_store_bytes"] == 0,
+                f"{name}: {usage[name]} (spill stores in the build log)")
 
 
 def main(argv=None):
@@ -915,10 +992,8 @@ def main(argv=None):
         k1_worst, k1_time = check_augment_kernel(cfg)
     if on("mm_check"):
         with full_float32():
-            fwd_worst = check_forward_kernels()
-            bwd_worst = check_backward_kernel()
-    if on("mm_timing"):
-        step_ms = time_matmul_kernels(ops_a, ops_b)
+            fwd_worst = check_forward_kernels(ops_a, ops_b)
+            bwd_worst = check_backward_kernel(ops_a, ops_b)
     if on("k3_path"):
         k3_launches = k3_path(ops_b)
     if on("k5_check"):
@@ -952,6 +1027,12 @@ def main(argv=None):
         train_path("fullbatch_path", full, 2, {k1: 1})
     if on("trace_probe"):
         trace_probe_phase()
+    # last: its per-shape profiled windows leave the host slower for the
+    # rest of the process (the bn-ema path's calls took 0.87 s instead of
+    # 0.67 after them, on the card), which the paths' wall times above
+    # would read
+    if on("mm_timing"):
+        step_ms = time_matmul_kernels(ops_a, ops_b)
 
     if not only:
         def mm_kernel(name, source, replaces, launches, err, t):

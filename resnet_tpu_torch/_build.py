@@ -48,15 +48,15 @@ SIGNATURES = {
         "bn_sums_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
     },
     "matmul_stats": {
-        # x, wt, a, b, y, psum, psumsq; M, K, N, dtype, normalize, relu;
-        # stream
-        "matmul_stats_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
+        # x, wt, a, b, y, psum, psumsq; M, K, N, dtype, normalize, relu,
+        # tile_n, grid; stream
+        "matmul_stats_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
     },
     "matmul_stats_bwd": {
         # gy, y, x, wt, gs, gss, a, b, inv, minv, dx, pdgamma, pdbeta,
-        # dwt_part; M, K, N, splits, rows_per_split, dtype, normalize, relu;
-        # stream
-        "matmul_stats_bwd_launch": ([_P] * 14 + [_I] * 8 + [_P], _I),
+        # dwt_part; M, K, N, splits, rows_per_split, dtype, normalize, relu,
+        # dx_tile, dx_grid, dw_tile, dw_grid; stream
+        "matmul_stats_bwd_launch": ([_P] * 14 + [_I] * 12 + [_P], _I),
     },
 }
 

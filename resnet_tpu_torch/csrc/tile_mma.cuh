@@ -1,22 +1,19 @@
 // Shared pieces of the matmul-with-statistics kernels (matmul_stats.cu,
-// matmul_stats_bwd.cu): 16-byte chunks of bf16 or float, and the product of
-// two shared-memory tiles accumulated in float32 registers by one block of
-// 256 threads.
+// matmul_stats_bwd.cu): 16-byte chunks of bf16 or float, the rounding-exact
+// prologue and cotangent fold, and the float32 tile product of the float32
+// kernels.
 //
-// bf16 tiles go through the tensor cores (nvcuda::wmma, 16x16x16, float32
-// accumulate); float32 tiles through plain FMAs on the CUDA cores, so that
-// float32 stays full precision (no TF32). Both write their accumulators to
-// a float32 staging tile in shared memory, from where the kernels' epilogues
-// read them in a layout of their own choosing.
+// The float32 kernels (run only in the parity checks) multiply through plain
+// FMAs on the CUDA cores, so that float32 stays full precision (no TF32),
+// and write their accumulators to a float32 staging tile in shared memory,
+// from where their epilogues read them. The bf16 kernels take the pipelined
+// tensor-core path of mma_pipeline.cuh instead.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace rt {
 
@@ -89,77 +86,11 @@ __device__ __forceinline__ float fold_g(float gy, float y, float gs,
 }
 
 // C (TM x TN, float32) += A (TM x TK) @ B (TK x TN) over shared-memory tiles
-// of T. A(i, k) lives at As[i*LDA + k], or As[k*LDA + i] with A_COL; B(k, j)
-// at Bs[k*LDB + j], or Bs[j*LDB + k] with B_COL.
+// of T (float only). A(i, k) lives at As[i*LDA + k], or As[k*LDA + i] with
+// A_COL; B(k, j) at Bs[k*LDB + j], or Bs[j*LDB + k] with B_COL.
 template <typename T, int TM, int TN, int TK, bool A_COL, bool B_COL, int LDA,
           int LDB>
 struct TileMma;
-
-// bf16: 8 warps as a 4 x 2 grid, each owning FM x FN wmma fragments.
-template <int TM, int TN, int TK, bool A_COL, bool B_COL, int LDA, int LDB>
-struct TileMma<bf16, TM, TN, TK, A_COL, B_COL, LDA, LDB> {
-  static constexpr int WM = 4, WN = 2;
-  static constexpr int FM = TM / (WM * 16), FN = TN / (WN * 16);
-  static_assert(FM >= 1 && FN >= 1 && TM % (WM * 16) == 0 &&
-                    TN % (WN * 16) == 0 && TK % 16 == 0,
-                "tile does not split into 16x16x16 fragments");
-  static_assert(LDA % 8 == 0 && LDB % 8 == 0, "wmma needs 16-byte rows");
-  using ALayout = std::conditional_t<A_COL, nvcuda::wmma::col_major,
-                                     nvcuda::wmma::row_major>;
-  using BLayout = std::conditional_t<B_COL, nvcuda::wmma::col_major,
-                                     nvcuda::wmma::row_major>;
-
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      acc[FM][FN];
-  int row0, col0;
-
-  __device__ __forceinline__ void init() {
-    const int warp = threadIdx.x >> 5;
-    row0 = (warp % WM) * (FM * 16);
-    col0 = (warp / WM) * (FN * 16);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-
-  __device__ __forceinline__ void step(const bf16* As, const bf16* Bs) {
-    namespace wmma = nvcuda::wmma;
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int r = row0 + i * 16;
-        wmma::load_matrix_sync(
-            af[i], A_COL ? As + kk * LDA + r : As + r * LDA + kk, LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int c = col0 + j * 16;
-        wmma::load_matrix_sync(
-            bfr[j], B_COL ? Bs + c * LDB + kk : Bs + kk * LDB + c, LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            C + (row0 + i * 16) * ldc + col0 + j * 16, acc[i][j], ldc,
-            nvcuda::wmma::mem_row_major);
-  }
-};
 
 // float32: 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
 // ty + 16*i and columns tx + 16*j, accumulated with FMAs.

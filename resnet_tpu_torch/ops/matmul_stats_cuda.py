@@ -18,16 +18,18 @@ accumulator, not from the ``y`` that is stored in ``x``'s dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 BLOCK_ROWS = 128       # rows of y or dx, and of one partial sum, a block
-DW_TILE = 64           # the dW kernel's tile edge along K and along N
-DW_ROW_STEP = 32       # rows it consumes per step: a split's row multiple
-DW_TARGET_BLOCKS = 1056   # 8 blocks for each of an H100's 132 SMs
-MAX_GRID_Y = 65535
+TILE_WIDTHS = (128, 64)   # output tile widths of the bf16 kernels
+DW_TILE_ROWS = 128     # rows (along N) of a bf16 dW^T tile
+DW_ROW_STEP = 64       # rows a dW stage holds: a split's row multiple
+H100_SMS = 132
+MAX_GRID_Y = 65535     # the float32 kernels' grid: one block row per 128 rows
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -149,7 +151,8 @@ def _vector(name, v, size, device):
                          f"{v.dtype} {tuple(v.shape)}")
     if v.device != device:
         raise ValueError(f"{name} is on {v.device}, expected {device}")
-    return v.contiguous()
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()   # 16-byte copies
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -174,31 +177,76 @@ def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
     from resnet_tpu_torch._build import load_library
     lib = load_library("matmul_stats")
     grid_m = -(-m // BLOCK_ROWS)
+    width, grid = tile_plan(m, n, _sm_count(x.device))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    psum = torch.empty((grid_m, n), dtype=torch.float32, device=x.device)
-    psumsq = torch.empty_like(psum)
+    # (sum, sumsq) partials, each (N, ceil(M/128)): one row per column, so
+    # that one reduction along contiguous rows adds them in a fixed order
+    stats = torch.empty((2, n, grid_m), dtype=torch.float32, device=x.device)
+    psum, psumsq = stats[0], stats[1]
     with torch.cuda.device(x.device):
         err = lib.matmul_stats_launch(
             x.data_ptr(), wt.data_ptr(),
             a.data_ptr() if normalize else None,
             b.data_ptr() if normalize else None,
             y.data_ptr(), psum.data_ptr(), psumsq.data_ptr(), m, k, n,
-            _DTYPE_CODES[x.dtype], int(normalize), int(relu),
+            _DTYPE_CODES[x.dtype], int(normalize), int(relu), width, grid,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "matmul_stats")
     counter.launches += 1
-    return y, psum.sum(dim=0), psumsq.sum(dim=0)
+    total, total_sq = stats.sum(dim=2)
+    return y, total, total_sq
 
 
-def dw_splits(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the dW kernel: enough splits of the M
-    rows that about ``DW_TARGET_BLOCKS`` blocks exist whatever K*N is, each
-    split at least 256 rows and a multiple of the kernel's row step."""
-    tiles = -(-k // DW_TILE) * -(-n // DW_TILE)
-    splits = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-m // 256)))
-    per_split = -(-m // splits)
-    rows = -(-per_split // DW_ROW_STEP) * DW_ROW_STEP
-    return -(-m // rows), rows
+def _wave_fill(items: int, sms: int) -> float:
+    """Share of the block slots that ``items`` equal work items fill over
+    the waves of a grid of ``sms`` persistent blocks (one an SM)."""
+    return items / (-(-items // sms) * sms)
+
+
+def tile_width(cols: int) -> int:
+    """Output tile width of the bf16 kernels: 64 where the output is at
+    most 64 wide, else 128. On the H100, 128-wide tiles were faster than
+    64-wide ones even where they leave most of a last wave idle: the
+    forward of 6272x2048x512 0.067 against 0.075 ms, the dx of
+    6272x512x2048 0.123 against 0.140 ms (kernel times, chip_smoke.py
+    mm_timing)."""
+    return 64 if cols <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(rows: int, cols: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(tile width, persistent blocks) of the bf16 forward or dx kernel."""
+    width = tile_width(cols)
+    tiles = -(-rows // BLOCK_ROWS) * -(-cols // width)
+    return width, min(tiles, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(m: int, k: int, n: int, sms: int = H100_SMS
+            ) -> Tuple[int, int, int, int]:
+    """(tile width along K, splits, rows per split, persistent blocks) of
+    the bf16 dW kernel; the float32 kernel takes the same splits. A work
+    item is one 128 x width tile of dW^T and one split of the M rows. The
+    split count is the one, up to ``round(sms / tiles)``, whose items fill
+    the card's waves best (ties to fewer), so that the float32 partials
+    stay near one wave of tiles whatever M is; one split writes dW with no
+    partials."""
+    width = tile_width(k)
+    tiles = -(-n // DW_TILE_ROWS) * -(-k // width)
+    best = None
+    for s in range(1, max(1, round(sms / tiles)) + 1):
+        rows = -(-(-(-m // s)) // DW_ROW_STEP) * DW_ROW_STEP
+        s = -(-m // rows)
+        fill = _wave_fill(tiles * s, sms)
+        if best is None or fill > best[0] + 1e-9:
+            best = (fill, s, rows)
+    _, s, rows = best
+    return width, s, rows, min(tiles * s, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
@@ -222,15 +270,17 @@ def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
         a, b, inv, minv = (_vector(name, v, k, x.device) for name, v in
                            zip(("a", "b", "inv", "minv"), consts))
     grid_m = -(-m // BLOCK_ROWS)
-    splits, rows = dw_splits(m, k, n)
+    sms = _sm_count(x.device)
+    dx_width, dx_grid = tile_plan(m, k, sms)
+    dw_width, splits, rows, dw_grid = dw_plan(m, k, n, sms)
     dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
     dwt_part = torch.empty((splits, n, k), dtype=torch.float32,
                            device=x.device)
     pdgamma = pdbeta = None
-    if normalize:
-        pdgamma = torch.empty((grid_m, k), dtype=torch.float32,
+    if normalize:     # (dgamma, dbeta) partials, each (K, ceil(M/128))
+        bn_part = torch.empty((2, k, grid_m), dtype=torch.float32,
                               device=x.device)
-        pdbeta = torch.empty_like(pdgamma)
+        pdgamma, pdbeta = bn_part[0], bn_part[1]
     from resnet_tpu_torch._build import load_library
     lib = load_library("matmul_stats_bwd")
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -242,10 +292,13 @@ def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
               if normalize else (None,) * 4),
             dx.data_ptr(), ptr(pdgamma), ptr(pdbeta), dwt_part.data_ptr(),
             m, k, n, splits, rows, _DTYPE_CODES[x.dtype], int(normalize),
-            int(relu), torch.cuda.current_stream().cuda_stream)
+            int(relu), dx_width, dx_grid, dw_width, dw_grid,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "matmul_stats_bwd")
     counter.launches += 1
-    dw = dwt_part.sum(dim=0).t()          # (K, N) view of dW^T (N, K)
+    # (K, N) view of dW^T (N, K); the splits summed in a fixed order
+    dw = (dwt_part[0] if splits == 1 else dwt_part.sum(dim=0)).t()
     if not normalize:
         return dx, dw, None, None
-    return dx, dw, pdgamma.sum(dim=0), pdbeta.sum(dim=0)
+    dgamma, dbeta = bn_part.sum(dim=2)
+    return dx, dw, dgamma, dbeta

@@ -149,10 +149,13 @@ def input_overhead(step_time_with_pipeline: float,
 
 
 # device cycles of a spin kernel put in front of every timed run (about
-# 0.2 ms): while the card spins, the host enqueues the start event, the
+# 1 ms): while the card spins, the host enqueues the start event, the
 # launches of ``fn`` and the end event, so that the events bracket device
-# work and not the host's launch gaps, which vary with the host's load
-SPIN_CYCLES = 400_000
+# work and not the host's launch gaps, which vary with the host's load. A
+# wrapper that folds BatchNorm vectors with a few small ops before its
+# launch needs up to a few tenths of a ms of host time; 0.2 ms of spin
+# left that showing in its times
+SPIN_CYCLES = 2_000_000
 
 
 def cuda_median_ms(fn: Callable, runs: int = 25,

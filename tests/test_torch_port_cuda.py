@@ -130,8 +130,15 @@ def test_train_step_launches_the_kernel(cuda):
 # the terms are products
 _RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 # (M, K, N): one block and less, ragged M over several blocks with K, N off
-# the tile, and a shape with several dW splits
-MM_SHAPES = [(96, 32, 64), (333, 72, 40), (4100, 64, 128)]
+# the tile, and a shape with several dW splits; then the bf16 kernels'
+# edges: a K that wraps the forward's 4-stage ring four times (with 128 x 64
+# forward tiles), a K tail off the 64-deep stage with N not a multiple of
+# 128, an M under one tile with K and N off both tile widths, and a grid
+# whose blocks walk several output tiles each (K = 64: one stage a tile)
+# with uneven dW splits (the last one ends inside a stage)
+MM_SHAPES = [(96, 32, 64), (333, 72, 40), (4100, 64, 128),
+             (4100, 1024, 256), (4100, 200, 136), (40, 136, 200),
+             (70000, 64, 64)]
 
 
 def _mm_inputs(device, m, k, n, dtype, seed=0):
@@ -227,6 +234,26 @@ def test_backward_kernel_matches_plain_version(cuda, mode, shape, dtype):
         xhat = (x.float() * consts[2] + consts[3]).abs()
         _assert_sums(got[2], want[2], (gxh * xhat).sum(0))
         _assert_sums(got[3], want[3], gxh.sum(0))
+
+
+@pytest.mark.parametrize("mode", ["plain", "norm-relu"])
+def test_backward_kernel_is_deterministic(cuda, mode):
+    """Two launches on one input give the same bits: dW's splits are
+    summed in a fixed order, the dgamma/dbeta partials too, no atomics."""
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops import matmul_stats_cuda as mk
+    m, k, n = 70000, 64, 256
+    assert mk.dw_plan(m, k, n)[1] > 1
+    x, w, bn, cots = _mm_inputs(cuda, m, k, n, torch.bfloat16, seed=3)
+    consts = None if mode == "plain" else _consts(bn)
+    a, b = (None, None) if consts is None else consts[:2]
+    y = mk.forward_plain(x, w, a, b, mode == "norm-relu")[0]
+    args = (cots["gy"], cots["gs"], cots["gss"], y, x, w, consts,
+            mode == "norm-relu")
+    first, second = fu.fused_backward(*args), fu.fused_backward(*args)
+    torch.cuda.synchronize()
+    for got, again in zip(first, second):
+        assert (got is None and again is None) or torch.equal(got, again)
 
 
 def test_matmul_wrappers_reject_bad_input(cuda):

@@ -272,10 +272,9 @@ def test_unknown_backend_raises():
 
 
 def test_dw_splits_cover_every_row():
-    from resnet_tpu_torch.ops.matmul_stats_cuda import (DW_ROW_STEP,
-                                                        dw_splits)
+    from resnet_tpu_torch.ops.matmul_stats_cuda import DW_ROW_STEP, dw_plan
     for m, k, n in [(401408, 64, 64), (6272, 1024, 2048), (25088, 256, 1024),
                     (135, 8, 8), (1, 8, 8), (100352, 512, 128)]:
-        splits, rows = dw_splits(m, k, n)
+        _, splits, rows, _ = dw_plan(m, k, n)
         assert splits >= 1 and rows % DW_ROW_STEP == 0
         assert splits * rows >= m > (splits - 1) * rows
