@@ -23,6 +23,14 @@ non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the JAX package.
 
+The augmentation kernel (K1) has two phases: ``k1`` holds it against
+its plain version (``k1_check``, ``k1_s2d_regroup``) and times the main
+path's launch and the trace probe's (``k1_timing``, with the bytes and
+operations bounds at this card's lane-instruction rate, printed on the
+``card`` line); ``k1_split`` times the main path's launch with one switch
+changed at a time (no canvas rows staged, HSL off, standard layout,
+float32 output) and the trace probe's launch with and without staging.
+
 ``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
 kernel); with no arguments every phase runs.
 """
@@ -44,13 +52,28 @@ import torch
 
 CANVAS, OUT, BATCH = 256, 224, 128
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM, dense bf16 on the tensor cores
-# float32 operations per output pixel of the augmentation kernel with HSL
-# on, counted from csrc/augment.cu (each add, multiply, divide, min, max,
-# abs, floor, compare and floor-mod one): coordinates 18 + 21, the 2x2
-# interpolation of three channels 27, the HSL round-trip 79, normalize 6
-AUG_OPS_PER_PIXEL = 151
+# float32 operations the augmentation kernel needs (each add, subtract,
+# multiply, divide, min, max, abs, floor, compare and floor-mod one),
+# counted from the expressions csrc/augment.cu evaluates: per output pixel
+# the horizontal interpolation of three channels (9) and the normalize (6,
+# and 3 each for contrast and illumination); per output row and canvas
+# column the band taps, the vertical interpolation (9); per pixel with HSL
+# on, the round-trip through the one hue branch it takes (59: 3 divisions
+# by 255, 4 min/max, delta 1, l 2, the guard 1, s 6, the hue branch 6,
+# h*30 + dh, mod 180 and /30 4, l and s jitter and clip 3 + 3, c 5, x 5,
+# m 2, the sector 2, the three outputs 12); per output row its vertical
+# taps (16) and per output column its horizontal ones, mirror included
+# (18), once an image. The reference's per-pixel form (151, as first counted)
+# repeats the vertical interpolation and the taps at every pixel and
+# evaluates all three hue branches. Bound by the lane-instruction rate:
+# the kernel is built without contracted multiply-adds, so an operation is
+# one instruction.
+AUG_PIXEL_OPS = 9 + 6
+AUG_VERTICAL_OPS = 9
+AUG_HSL_OPS = 59
+AUG_ROW_OPS = 16
+AUG_COL_OPS = 18
 # tolerances of the kernel against its plain version (HSL on): the CPU
 # tests' bar, atol 5e-2 / rtol 1e-4 in float32; in bf16 one bf16 ulp more
 # (2^-7 relative), since the two may round on either side of a boundary
@@ -90,9 +113,10 @@ def full_float32():
 
 
 def aug_inputs(cfg_data, gen, n, contrast_illum, canvas_side=CANVAS,
-               out=OUT):
-    """Canvases (a third letterboxed, zero beyond their extent) and the
-    (n, 12) rows the port's samplers draw for them."""
+               out=OUT, letterbox=True, wide_dh=False):
+    """Canvases (with ``letterbox``, a third letterboxed, zero beyond their
+    extent) and the (n, 12) rows the port's samplers draw for them. With
+    ``wide_dh`` every image's hue shift lies in 180 <= |dh| < 540."""
     from resnet_tpu_torch.ops.augment import sample_boxes_canvas
     from resnet_tpu_torch.ops.augment_fused import (augment_rows,
                                                     sample_photometric)
@@ -102,8 +126,9 @@ def aug_inputs(cfg_data, gen, n, contrast_illum, canvas_side=CANVAS,
     orig = torch.randint(160, 640, (n, 2), generator=gen, device=dev)
     scale = canvas_side / orig.max(dim=1).values.float()
     eff = torch.round(orig.float() * scale[:, None]).clamp_max(canvas_side)
-    dims[lb, :2] = orig[lb].int()
-    dims[lb, 2:] = eff[lb].int()
+    if letterbox:
+        dims[lb, :2] = orig[lb].int()
+        dims[lb, 2:] = eff[lb].int()
     canvas = torch.randint(0, 256, (n, canvas_side, canvas_side, 3),
                            generator=gen, device=dev, dtype=torch.uint8)
     idx = torch.arange(canvas_side, device=dev)
@@ -117,15 +142,19 @@ def aug_inputs(cfg_data, gen, n, contrast_illum, canvas_side=CANVAS,
                                 (out, out), dims, device=dev)
     flip = torch.rand((n,), generator=gen, device=dev) < 0.5
     ph = sample_photometric(gen, data, n, device=dev)
+    if wide_dh:
+        u = torch.rand((n,), generator=gen, device=dev)
+        sign = torch.where(torch.arange(n, device=dev) % 2 == 0, 1.0, -1.0)
+        ph["dh"] = sign * (180.0 + 360.0 * u)
     rows = augment_rows(boxes, flip, (dims[:, 2], dims[:, 3]), ph, n,
                         (canvas_side, canvas_side), device=dev)
     return canvas, rows, data
 
 
-def touched_canvas_bytes(rows, sh, sw, oh, ow):
-    """Canvas bytes the kernel must read for these rows: per image, the
-    source rows times the source columns that carry a non-zero tap weight
-    (the kernel's own coordinate arithmetic), three bytes a pixel."""
+def touched_taps(rows, sh, sw, oh, ow):
+    """Per image, the canvas rows and the canvas columns that carry a
+    non-zero tap weight (the kernel's own coordinate arithmetic): (N,) each.
+    Their product times three is the canvas bytes the kernel must read."""
     def taps(start, size, valid, out_size, src_size):
         i = torch.arange(out_size, dtype=torch.float32, device=rows.device)
         src = (start[:, None] + (i + 0.5) * (size / out_size)[:, None]
@@ -138,23 +167,87 @@ def touched_canvas_bytes(rows, sh, sw, oh, ow):
         used.scatter_(1, lo.long(), True)
         used.scatter_(1, torch.where(hi_w > 0, lo + 1, lo).long(), True)
         return used[:, :src_size].sum(dim=1)
-    r = taps(rows[:, 0], rows[:, 2], rows[:, 5], oh, sh)
-    c = taps(rows[:, 1], rows[:, 3], rows[:, 6], ow, sw)
-    return int((r * c).sum()) * 3
+    return (taps(rows[:, 0], rows[:, 2], rows[:, 5], oh, sh),
+            taps(rows[:, 1], rows[:, 3], rows[:, 6], ow, sw))
+
+
+def lane_ops_per_s():
+    """(SMs, maximum SM clock in MHz, lane-instructions per second) of card
+    0: SMs x 128 float32 lanes x the clock. The augmentation kernel is
+    built without contracted multiply-adds, so each of its operations is
+    one lane-instruction at this rate (the data sheet's 67 TFLOP/s counts
+    a multiply-add as two operations)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms, mhz, sms * 128 * mhz * 1e6
+
+
+def aug_bounds(canvas, rows, out_hw, dtype, hsl, contrast, illum):
+    """Bytes and float32 operations the augmentation kernel needs for
+    these inputs, and the least time each takes on this card."""
+    n, sh, sw, _ = canvas.shape
+    oh, ow = out_hw
+    used_rows, used_cols = touched_taps(rows, sh, sw, oh, ow)
+    read = int((used_rows * used_cols).sum()) * 3
+    moved = read + rows.numel() * 4 + n * oh * ow * 3 * dtype.itemsize
+    per_pixel = (AUG_PIXEL_OPS + (AUG_HSL_OPS if hsl else 0)
+                 + 3 * int(contrast) + 3 * int(illum))
+    ops = (n * (oh * ow * per_pixel + oh * AUG_ROW_OPS + ow * AUG_COL_OPS)
+           + oh * AUG_VERTICAL_OPS * int(used_cols.sum()))
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / lane_ops_per_s()[2] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return dict(bytes=moved, canvas_bytes_read=read,
+                full_canvas_bytes=canvas.numel(), operations=ops,
+                operations_per_pixel=ops / (n * oh * ow),
+                bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+# K1's checked cases: name -> (aug_inputs arguments, kernel flags)
+K1_CHECKS = {
+    "hsl": (dict(contrast_illum=False), dict(hsl=True)),
+    "hsl_contrast_illum": (dict(contrast_illum=True),
+                           dict(hsl=True, contrast=True, illum=True)),
+    "contrast_illum": (dict(contrast_illum=True),
+                       dict(contrast=True, illum=True)),
+    "wide_dh": (dict(contrast_illum=False, wide_dh=True), dict(hsl=True)),
+    "canvas512": (dict(contrast_illum=False, canvas_side=512),
+                  dict(hsl=True)),
+}
+# K1's timed launches: the main path's (bs128, 256 canvas -> 224, bf16
+# s2d, HSL on), the trace probe's (bs256, a full 224 canvas -> 224, bf16,
+# standard layout, HSL on), and each with one switch changed; staging off
+# and on alternate
+K1_MAIN = dict(n=BATCH, canvas_side=CANVAS, letterbox=True, s2d=True,
+               dtype=torch.bfloat16, hsl=True)
+K1_TRACE = dict(n=256, canvas_side=OUT, letterbox=False, s2d=False,
+                dtype=torch.bfloat16, hsl=True)
+K1_SPLIT = {"main": K1_MAIN, "no_staging": dict(K1_MAIN, staging=False),
+            "hsl_off": dict(K1_MAIN, hsl=False),
+            "standard": dict(K1_MAIN, s2d=False),
+            "float32": dict(K1_MAIN, dtype=torch.float32),
+            "trace_probe_no_staging": dict(K1_TRACE, staging=False),
+            "trace_probe": K1_TRACE}
 
 
 def check_augment_kernel(cfg):
-    """K1 against its plain version at the training shapes."""
+    """K1 against its plain version at the training shapes, in both layouts
+    and both dtypes, for each case of ``K1_CHECKS``; s2d must be a bitwise
+    regroup of the standard output. Returns the largest |diff| against the
+    plain version."""
     from resnet_tpu_torch.ops.augment import space_to_depth
     from resnet_tpu_torch.ops.augment_fused import (
         fused_crop_mirror_normalize as k1,
         fused_crop_mirror_normalize_reference as k1_plain)
-    from resnet_tpu_torch.utils.profiler import cuda_median_ms
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    for contrast_illum in (False, True):
-        canvas, rows, data = aug_inputs(cfg.data, gen, BATCH, contrast_illum)
-        flags = dict(hsl=True, contrast=contrast_illum, illum=contrast_illum)
+    for case, (inputs, flags) in K1_CHECKS.items():
+        canvas, rows, data = aug_inputs(cfg.data, gen, BATCH, **inputs)
         for dtype in (torch.float32, torch.bfloat16):
             outs = {}
             for s2d in (False, True):
@@ -170,38 +263,93 @@ def check_augment_kernel(cfg):
                 atol, rtol = TOL[dtype]
                 bad = int((diff > atol + rtol * want.float().abs()).sum())
                 err = float(diff.max())
-                emit(phase="k1_check", dtype=str(dtype), s2d=s2d,
-                     contrast_illum=contrast_illum, max_abs_diff=err,
-                     atol=atol, rtol=rtol, out_of_tolerance=bad)
+                emit(phase="k1_check", case=case, dtype=str(dtype), s2d=s2d,
+                     canvas=canvas.shape[1], max_abs_diff=err, atol=atol,
+                     rtol=rtol, out_of_tolerance=bad)
                 require(bad == 0, "augmentation kernel disagrees with its "
                         "plain version")
                 worst = max(worst, err)
                 outs[s2d] = got
+                del want, diff
             require(torch.equal(outs[True], space_to_depth(outs[False])),
                     "s2d output is not a bitwise regroup of the standard")
-            emit(phase="k1_s2d_regroup", dtype=str(dtype),
-                 contrast_illum=contrast_illum, bitwise=True)
+            emit(phase="k1_s2d_regroup", case=case, dtype=str(dtype),
+                 bitwise=True)
+    return worst
 
-    # time at the main path's setting: bf16, s2d, HSL on, no contrast
-    canvas, rows, data = aug_inputs(cfg.data, gen, BATCH, False)
-    args = (canvas, rows, (OUT, OUT), data.mean_rgb, data.std_rgb,
-            torch.bfloat16)
+
+@contextlib.contextmanager
+def staging_off():
+    """K1's launch plan with no canvas rows staged: every band reads its
+    taps from the canvas directly, as a band that overruns the staging
+    budget does. What staging is worth, beside the plan's own launch."""
+    from resnet_tpu_torch.ops import augment_fused as af
+    plan = af.aug_plan
+
+    def unstaged(sh, sw, oh, ow, s2d):
+        p = plan(sh, sw, oh, ow, s2d)
+        return p._replace(staged_rows=0, staged_cols=0, smem_bytes=(
+            af.aug_smem_bytes(ow, p.band_rows, 0, 0)))
+    af.aug_plan = unstaged
+    try:
+        yield
+    finally:
+        af.aug_plan = plan
+
+
+def time_augment_launch(cfg, gen, flush, n, canvas_side, letterbox, s2d,
+                        dtype, hsl, plain=False, staging=True):
+    """CUDA-event median (25 runs, L2 flushed, 1 ms spin) of one K1 launch
+    at these settings (``staging=False``: under ``staging_off``), with its
+    bounds on this card."""
+    from resnet_tpu_torch.ops.augment_fused import (
+        fused_crop_mirror_normalize as k1,
+        fused_crop_mirror_normalize_reference as k1_plain)
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
+    canvas, rows, data = aug_inputs(cfg.data, gen, n, False,
+                                    canvas_side=canvas_side,
+                                    letterbox=letterbox)
+    args = (canvas, rows, (OUT, OUT), data.mean_rgb, data.std_rgb, dtype)
+    with contextlib.nullcontext() if staging else staging_off():
+        ms = cuda_median_ms(lambda: k1(*args, s2d=s2d, hsl=hsl), flush=flush)
+    out = dict(ms=ms, **aug_bounds(canvas, rows, (OUT, OUT), dtype, hsl,
+                                   False, False))
+    out["share_of_bound"] = out["bound_ms"] / ms
+    if plain:
+        out["plain_ms"] = cuda_median_ms(
+            lambda: k1_plain(*args, s2d=s2d, hsl=hsl), flush=flush)
+    return out
+
+
+def augment_split(cfg):
+    """K1 at the main path's launch with one switch changed at a time, and
+    at the trace probe's launch with and without staging: what staging,
+    the HSL round-trip, the layout and the output dtype cost beside the
+    bounds."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
-    ms = cuda_median_ms(lambda: k1(*args, s2d=True, hsl=True), flush=flush)
-    plain_ms = cuda_median_ms(lambda: k1_plain(*args, s2d=True, hsl=True),
-                              flush=flush)
-    read = touched_canvas_bytes(rows, CANVAS, CANVAS, OUT, OUT)
-    moved = read + rows.numel() * 4 + BATCH * OUT * OUT * 3 * 2
-    ops = AUG_OPS_PER_PIXEL * BATCH * OUT * OUT
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                  bytes=moved, canvas_bytes_read=read,
-                  full_canvas_bytes=canvas.numel(), operations=ops,
-                  bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
-    emit(phase="k1_timing", runs=25, **timing)
-    return worst, timing
+    for case, setting in K1_SPLIT.items():
+        # the same inputs for every case of one shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t = time_augment_launch(cfg, gen, flush, **setting)
+        emit(phase="k1_split", case=case, runs=25,
+             **{k: (str(v) if k == "dtype" else v)
+                for k, v in setting.items()}, **t)
+        torch.cuda.empty_cache()
+
+
+def augment_timing(cfg):
+    """K1 at the main path's launch (with its plain version) and at the
+    trace probe's; the main path's is the kernels line's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    main = time_augment_launch(cfg, gen, flush, plain=True, **K1_MAIN)
+    trace = time_augment_launch(cfg, gen, flush, **K1_TRACE)
+    sms, mhz, rate = lane_ops_per_s()
+    emit(phase="k1_timing", runs=25, sms=sms, sm_clock_max_mhz=mhz,
+         lane_ops_per_s=rate, main_path=main, trace_probe=trace,
+         card=nvidia_smi_line())
+    torch.cuda.empty_cache()
+    return main
 
 
 def reference_check(phase, n=8, **train_overrides):
@@ -970,9 +1118,11 @@ def main(argv=None):
 
     card = nvidia_smi_line()
     print(card, flush=True)
+    sms, mhz, rate = lane_ops_per_s()
     emit(phase="card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, sms=sms, sm_clock_max_mhz=mhz,
+         float32_lane_ops_per_s=rate)
     build_phase()
 
     cfg = imagenet_resnet50()                      # the preset: bn-ema
@@ -989,7 +1139,10 @@ def main(argv=None):
             "and 16 op-B 1x1 convs")
 
     if on("k1"):
-        k1_worst, k1_time = check_augment_kernel(cfg)
+        k1_worst = check_augment_kernel(cfg)
+        k1_time = augment_timing(cfg)
+    if on("k1_split"):
+        augment_split(cfg)
     if on("mm_check"):
         with full_float32():
             fwd_worst = check_forward_kernels(ops_a, ops_b)

@@ -39,8 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported launch function: (argtypes, restype)
 SIGNATURES = {
     "augment": {
+        # canvas, rows, out; n, sh, sw, oh, ow, band, staged_rows,
+        # staged_cols, smem_bytes; mean, inv_std; out_bf16, s2d, hsl,
+        # contrast, illum; stream
         "fused_crop_mirror_normalize_launch": (
-            [_P, _P, _P] + [_I] * 5 + [_F] * 6 + [_I] * 5 + [_P], _I),
+            [_P, _P, _P] + [_I] * 9 + [_F] * 6 + [_I] * 5 + [_P], _I),
     },
     "bn_sums": {
         # gy, x, mean, inv, ps1, ps2; M, C, splits, rows_per_split, dtype;

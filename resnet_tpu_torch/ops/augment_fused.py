@@ -11,7 +11,8 @@ values the JAX samplers drew.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +24,66 @@ from resnet_tpu_torch.ops.augment import (_rgb_to_hsl_adjust,
 
 ROW_LEN = 12
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+# the kernel's launch geometry (csrc/augment.cu)
+AUG_THREADS = 128
+AUG_MAX_BAND = 8            # output rows a block owns, at most
+AUG_SMEM_TARGET = 48 * 1024  # a band whose shared memory needs more is halved
+AUG_SMEM_MAX = 232448       # 227 KB, a block's most on sm_90
+
+
+class AugPlan(NamedTuple):
+    band_rows: int     # output rows a block owns (even in s2d)
+    staged_rows: int   # canvas rows a block stages (0: none)
+    staged_cols: int   # canvas columns a staged row may span
+    smem_bytes: int    # dynamic shared memory a block
+    bands: int         # blocks an image: the grid is (bands, N)
+
+
+def band_source_rows(band: int, sh: int, oh: int) -> int:
+    """Canvas rows a band of ``band`` output rows taps at most, for any crop
+    inside an ``sh``-row canvas: its first and last sample points lie at
+    most ``(band-1)*sh/oh`` apart, so their floors differ by at most that
+    rounded down plus one, and the last point's second tap adds a row; and
+    no more than the canvas's rows and the one past it."""
+    return min((band - 1) * sh // oh + 3, sh + 1)
+
+
+def aug_smem_bytes(ow: int, band: int, staged_rows: int,
+                   staged_cols: int) -> int:
+    """The kernel's dynamic shared memory: 16-byte taps of the ``ow``
+    columns and the ``band`` rows, the vertical pass (``band`` x
+    ``staged_cols`` float4) and the staged canvas rows,
+    ``floor((3*staged_cols + 30) / 16)`` 16-byte chunks a row."""
+    raw_pitch = (3 * staged_cols + 30) // 16 * 16
+    return 16 * (ow + band + band * staged_cols) + staged_rows * raw_pitch
+
+
+@functools.lru_cache(maxsize=None)
+def aug_plan(sh: int, sw: int, oh: int, ow: int, s2d: bool) -> AugPlan:
+    """Launch geometry of the augmentation kernel for an ``(sh, sw)``
+    canvas and ``(oh, ow)`` output: the largest band, up to
+    ``AUG_MAX_BAND`` rows (even in s2d), whose shared memory stays within
+    ``AUG_SMEM_TARGET``; the smallest band where none does. A window spans
+    at most ``sw + 1`` columns (the taps clamp to the canvas). Where even
+    the smallest band exceeds a block's shared memory the kernel stages
+    nothing and reads its taps from the canvas; a band whose crop taps
+    more rows than the plan staged (rows no sampler draws) does the same,
+    so no shape is refused."""
+    step = 2 if s2d else 1
+    cols = sw + 1
+
+    def smem(band):
+        return aug_smem_bytes(ow, band, band_source_rows(band, sh, oh), cols)
+
+    band = min(AUG_MAX_BAND, -(-oh // step) * step)
+    while band > step and smem(band) > AUG_SMEM_TARGET:
+        band = max(step, band // 2 // step * step)
+    staged = band_source_rows(band, sh, oh)
+    if smem(band) > AUG_SMEM_MAX:
+        staged = 0
+    cols = cols if staged else 0
+    return AugPlan(band, staged, cols,
+                   aug_smem_bytes(ow, band, staged, cols), -(-oh // band))
 
 
 def _check_args(canvas_u8: torch.Tensor, rows: torch.Tensor,
@@ -95,16 +156,20 @@ def fused_crop_mirror_normalize(
     oh, ow = out_hw
     if n > 65535:
         raise ValueError(f"at most 65535 images per launch, got {n}")
+    if sh * sw * 3 >= 2 ** 31:
+        raise ValueError(f"an image of at most 2^31 bytes, got {sh}x{sw}")
     shape = (n, oh // 2, ow // 2, 12) if s2d else (n, oh, ow, 3)
     out = torch.empty(shape, dtype=dtype, device=canvas_u8.device)
     from resnet_tpu_torch._build import load_library
     lib = load_library("augment")
+    plan = aug_plan(sh, sw, oh, ow, bool(s2d))
     mean = [float(m) for m in mean_rgb]
     inv_std = [1.0 / float(s) for s in std_rgb]
     with torch.cuda.device(canvas_u8.device):
         err = lib.fused_crop_mirror_normalize_launch(
             canvas_u8.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            n, sh, sw, oh, ow, *mean, *inv_std,
+            n, sh, sw, oh, ow, plan.band_rows, plan.staged_rows,
+            plan.staged_cols, plan.smem_bytes, *mean, *inv_std,
             int(dtype == torch.bfloat16), int(s2d), int(hsl),
             int(contrast), int(illum),
             torch.cuda.current_stream().cuda_stream)

@@ -9,6 +9,7 @@ the JAX kernel by tests/test_torch_port_augment.py), and the card's
 max-pool backward against the CPU's tie routing.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,6 +68,225 @@ def test_kernel_matches_plain_version(cuda, s2d, dtype):
     if s2d:
         std = fused_crop_mirror_normalize(*args, **dict(flags, s2d=False))
         assert torch.equal(got, space_to_depth(std))
+
+
+def _aug_case(device, n, hc, wc, *, upscale=False, wide_dh=False,
+              overrun=False, seed=1):
+    """``n`` uint8 canvases of ``hc`` x ``wc`` (every other one letterboxed
+    to about 3/4 of each side, zero beyond) and rows drawn for them: crops
+    of 2-6 pixels a side with ``upscale``; hue shifts with 180 <= |dh| <
+    540 with ``wide_dh``; with ``overrun`` a valid extent and a crop three
+    times the canvas's height, so that a band taps more canvas rows than
+    the launch plan stages (taps beyond the canvas add nothing)."""
+    g = torch.Generator().manual_seed(seed)
+    canvas = torch.randint(0, 256, (n, hc, wc, 3), generator=g,
+                           dtype=torch.uint8)
+    lb = torch.arange(n) % 2 == 1
+    vh = torch.where(lb, float(max(1, hc * 3 // 4)), float(hc))
+    vw = torch.where(lb, float(max(1, wc * 3 // 4)), float(wc))
+    for i in range(n):
+        canvas[i, int(vh[i]):] = 0
+        canvas[i, :, int(vw[i]):] = 0
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)
+    if upscale:
+        ch, cw = torch.round(u(2, 6)), torch.round(u(2, 6))
+    else:
+        ch = torch.round(u(0.2, 1) * vh).clamp_min(2.0)
+        cw = torch.round(u(0.2, 1) * vw).clamp_min(2.0)
+    if overrun:
+        vh = ch = torch.full((n,), 3.0 * hc)
+    y0 = torch.floor(u(0, 1) * (vh - ch + 1))
+    x0 = torch.floor(u(0, 1) * (vw - cw + 1))
+    dh = u(-36, 36)
+    if wide_dh:
+        dh = torch.where(torch.arange(n) % 2 == 0, 1.0, -1.0) * u(180, 540)
+    ph = {"dh": dh, "ds": u(-50, 50), "dl": u(-50, 50),
+          "alpha": u(0.7, 1.3), "beta": u(-20, 20)}
+    rows = augment_rows((y0, x0, ch, cw), torch.rand(n, generator=g) < 0.5,
+                        (vh, vw), ph, n, (hc, wc))
+    return canvas.to(device), rows.to(device)
+
+
+def _assert_kernel(canvas, rows, out_hw, dtype, **flags):
+    """The kernel against its plain version in the standard layout and,
+    where the output is even, in s2d, which must be a bitwise regroup of
+    the standard output. Returns the standard output."""
+    d = DataConfig()
+    args = (canvas, rows, out_hw, d.mean_rgb, d.std_rgb, dtype)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    got = fused_crop_mirror_normalize(*args, **flags)
+    want = fused_crop_mirror_normalize_reference(*args, **flags)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2,
+                               rtol=rtol)
+    if out_hw[0] % 2 == 0 and out_hw[1] % 2 == 0:
+        blocked = fused_crop_mirror_normalize(*args, s2d=True, **flags)
+        assert torch.equal(blocked, space_to_depth(got))
+    return got
+
+
+_ALL_FLAGS = dict(hsl=True, contrast=True, illum=True)
+# (canvas n, hc, wc, _aug_case switches), output size: the shapes the
+# launch plan must take beside the training ones
+_EDGE_CASES = {
+    "odd_width": ((3, 40, 48, {}), (31, 29)),
+    "unaligned_canvas": ((4, 40, 29, {}), (32, 32)),
+    "upscale": ((4, 40, 48, dict(upscale=True)), (32, 32)),
+    "one_image": ((1, 40, 48, {}), (32, 32)),
+    "canvas512": ((2, 512, 512, {}), (224, 224)),
+    "wide_dh": ((4, 40, 48, dict(wide_dh=True)), (32, 32)),
+    "overrun": ((4, 40, 48, dict(overrun=True)), (32, 32)),
+    "unstaged_canvas": ((2, 6, 10000, {}), (4, 8)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_EDGE_CASES))
+def test_kernel_edge_shapes_match_plain_version(cuda, case, dtype):
+    (n, hc, wc, switches), out_hw = _EDGE_CASES[case]
+    canvas, rows = _aug_case(cuda, n, hc, wc, **switches)
+    _assert_kernel(canvas, rows, out_hw, dtype, **_ALL_FLAGS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_without_hsl_matches_plain_version(cuda, dtype):
+    canvas, rows = _aug_case(cuda, 5, 40, 48)
+    _assert_kernel(canvas, rows, (32, 32), dtype, contrast=True, illum=True)
+
+
+def test_kernel_launches_give_identical_bits(cuda):
+    canvas, rows = _aug_case(cuda, 5, 40, 48)
+    d = DataConfig()
+    args = (canvas, rows, (32, 32), d.mean_rgb, d.std_rgb, torch.bfloat16)
+    for s2d in (False, True):
+        first = fused_crop_mirror_normalize(*args, s2d=s2d, **_ALL_FLAGS)
+        again = fused_crop_mirror_normalize(*args, s2d=s2d, **_ALL_FLAGS)
+        assert torch.equal(first, again)
+
+
+_F = np.float32
+
+
+def _floor_mod(x, m):
+    r = np.fmod(x, m)
+    return np.where((r != 0) & (r < 0), r + m, r)
+
+
+def _clip(x, lo, hi):
+    return np.minimum(np.maximum(x, _F(lo)), _F(hi))
+
+
+def _per_pixel_form(canvas, rows, out_hw, mean_rgb, std_rgb):
+    """The kernel's function evaluated pixel by pixel in numpy float32
+    (IEEE operations, no fused multiply-adds, divisions with ``/``), in the
+    kernel's expression order: the taps, the bilinear sample (zero outside
+    the canvas), the HSL round-trip with contrast and illumination, the
+    normalize. Returns the float32 (N, oh, ow, 3) output and each pixel's
+    ``delta`` (max - min of its channels over 255)."""
+    img = canvas.astype(_F)
+    n, sh, sw, _ = img.shape
+    oh, ow = out_hw
+    y0, x0, ch, cw, flip, vh, vw, dh, ds, dl, alpha, beta = (
+        rows[:, k:k + 1] for k in range(12))
+
+    def taps(pos, start, size, out_size, valid):
+        src = start + (pos + _F(0.5)) * (size / _F(out_size)) - _F(0.5)
+        src = np.minimum(np.maximum(src, _F(0)), valid - _F(1))
+        f = np.floor(src)
+        return (f.astype(np.int64), np.maximum(_F(0), _F(1) - np.abs(src - f)),
+                np.maximum(_F(0), _F(1) - np.abs(src - (f + _F(1)))))
+
+    j = np.arange(ow, dtype=_F)[None]
+    ya, wya, wyb = taps(np.arange(oh, dtype=_F)[None], y0, ch, oh, vh)
+    xa, wxa, wxb = taps(np.where(flip > 0.5, (_F(ow) - _F(1)) - j, j), x0,
+                        cw, ow, vw)
+    idx = np.arange(n)[:, None, None]
+
+    def pixel(y, x):
+        inside = (y >= 0) & (y < sh) & (x >= 0) & (x < sw)
+        v = img[idx, np.clip(y, 0, sh - 1), np.clip(x, 0, sw - 1)]
+        return np.where(inside[..., None], v, _F(0))
+
+    y, x = ya[:, :, None], xa[:, None, :]
+    wa, wb = wya[:, :, None, None], wyb[:, :, None, None]
+    va = wa * pixel(y, x) + wb * pixel(y + 1, x)
+    vb = wa * pixel(y, x + 1) + wb * pixel(y + 1, x + 1)
+    p = va * wxa[:, None, :, None] + vb * wxb[:, None, :, None]
+
+    r, g, b = (p[..., c] / _F(255) for c in range(3))
+    cmax = np.maximum(np.maximum(r, g), b)
+    cmin = np.minimum(np.minimum(r, g), b)
+    delta = cmax - cmin
+    light = (cmax + cmin) / _F(2)
+    safe = delta > _F(1e-8)
+    den = delta + _F(1e-8)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sat = np.where(safe, delta / (_F(1) - np.abs(_F(2) * light - _F(1))
+                                      + _F(1e-8)), _F(0))
+        hr = np.where(safe & (cmax == r), _floor_mod((g - b) / den, _F(6)),
+                      _F(0))
+        hg = np.where(safe & (cmax == g) & (cmax != r),
+                      (b - r) / den + _F(2), _F(0))
+        hb = np.where(safe & (cmax == b) & (cmax != r) & (cmax != g),
+                      (r - g) / den + _F(4), _F(0))
+    per_image = lambda v: v[:, :, None]
+    h = _floor_mod((hr + hg + hb) * _F(30) + per_image(dh), _F(180)) / _F(30)
+    light = _clip(light + per_image(dl) / _F(255), 0, 1)
+    sat = _clip(sat + per_image(ds) / _F(255), 0, 1)
+    c = (_F(1) - np.abs(_F(2) * light - _F(1))) * sat
+    xx = c * (_F(1) - np.abs(_floor_mod(h, _F(2)) - _F(1)))
+    m = light - c / _F(2)
+    sector = h.astype(np.int32) % 6
+    zero = np.zeros_like(c)
+    pick = lambda *v: np.select([sector == k for k in range(5)], v[:5], v[5])
+    rgb = [pick(c, xx, zero, zero, xx, c), pick(xx, c, c, xx, zero, zero),
+           pick(zero, zero, xx, c, c, xx)]
+    out = []
+    for k, v in enumerate(rgb):
+        v = _clip((v + m) * _F(255), 0, 255) - _F(mean_rgb[k])
+        v = v * per_image(alpha) + per_image(beta)
+        out.append(v * _F(1.0 / float(std_rgb[k])))
+    return np.stack(out, axis=-1), delta
+
+
+def _near_grey_case(n=8, hc=40, wc=48, seed=3):
+    """Canvases whose channels differ by 0-2 levels, on a third of the
+    pixels, and crops of any position and scale: sampled pixels whose
+    channels lie within a small fraction of a level of each other, where
+    the hue's division takes its smallest divisors. The last two images
+    shift the hue by 180-540 degrees."""
+    rng = np.random.default_rng(seed)
+    grey = rng.integers(0, 254, (n, hc, wc, 1))
+    spread = rng.integers(0, 3, (n, hc, wc, 3)) * (
+        rng.random((n, hc, wc, 1)) < 1 / 3)
+    canvas = (grey + spread).astype(np.uint8)
+    u = lambda lo, hi: rng.uniform(lo, hi, n)
+    ch, cw = u(1.5, hc), u(1.5, wc)
+    y0, x0 = u(0, 1) * (hc - ch), u(0, 1) * (wc - cw)
+    dh = u(-36, 36)
+    dh[-2:] = [300.0, -200.0]
+    cols = [y0, x0, ch, cw, (np.arange(n) % 2).astype(float),
+            np.full(n, hc), np.full(n, wc), dh, u(-50, 50), u(-50, 50),
+            u(0.7, 1.3), u(-20, 20)]
+    return canvas, np.stack(cols, axis=1).astype(_F)
+
+
+def test_kernel_is_the_per_pixel_form_bit_for_bit_on_near_grey_pixels(cuda):
+    """The kernel's divisions (a fast sequence where it is exact, ``/``
+    elsewhere) against IEEE division, pixel by pixel, where the hue's
+    divisor ``delta + 1e-8`` is smallest: the float32 outputs must be the
+    same bits."""
+    canvas, rows = _near_grey_case()
+    d = DataConfig()
+    want, delta = _per_pixel_form(canvas, rows, (48, 48), d.mean_rgb,
+                                  d.std_rgb)
+    assert int(((delta > 1e-8) & (delta < 1e-4)).sum()) >= 100
+    got = fused_crop_mirror_normalize(
+        torch.from_numpy(canvas).to(cuda), torch.from_numpy(rows).to(cuda),
+        (48, 48), d.mean_rgb, d.std_rgb, torch.float32, **_ALL_FLAGS)
+    got = got.cpu().numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32)), (
+        int((got != want).sum()), float(np.abs(got - want).max()))
 
 
 def test_kernel_rejects_bad_input(cuda):
