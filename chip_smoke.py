@@ -15,9 +15,17 @@ BatchNorm modes, against the port's CPU path on a small input, and runs
 one eval step. Then the two probes: ``reduce_probe`` (the BatchNorm
 backward's sum pair, K5, at ResNet-50's bs256 shapes) and ``trace_probe``
 (device time by kernel of the bs256 ``bn_subsample=8`` train step), and
-last the fused 1x1-conv kernels' timings at every ResNet-50 shape, with
-each kernel apart from the wrapper's partial sums from a profiled window
-a shape. Each
+the fused 1x1-conv kernels' timings at every ResNet-50 shape, with each
+kernel apart from the wrapper's partial sums from a profiled window a
+shape. Last, in a child process, the training entry point: ``fit_path``
+runs ``python -m resnet_tpu_torch.train_resnet``'s ``main`` at the preset
+(2 epochs of in-memory data with validation and checkpoints, the bn-ema
+switch inside; its img/s beside ``main_path``'s is the fit loop's input
+overhead, and CUDA events around its train calls give the device's idle
+share), ``fit_params`` round-trips its checkpoint through an MXNet
+``.params`` file, ``fit_resume`` SIGTERMs a real CLI process mid-epoch
+and resumes it, and ``prefetch_check`` holds the side-stream prefetch
+against the host batches. Each
 phase prints one JSON line; a failed check raises and the script exits
 non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -992,7 +1000,7 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
     call; 1 warm-up call and ``timed_calls`` timed ones. ``per_step`` maps
     each kernel wrapper on this path to its expected launches per step; the
     counts are set to 0 just before the path is driven and read just after.
-    Returns wrapper -> launches."""
+    Returns (wrapper -> launches, img/s of the median call)."""
     from resnet_tpu_torch.ops.augment import eval_center_crop
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
@@ -1070,7 +1078,336 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
         emit(phase="eval_step", **ev)
     del state, step, pool
     torch.cuda.empty_cache()
+    return launches, k * bs / call_s
+
+
+# ---------------------------------------------------------------------------
+# The training entry point: the fit loop, prefetch, checkpoints, resume
+# ---------------------------------------------------------------------------
+
+# 24 steps of batch 128 an epoch: four 6-step dispatches
+FIT_EXAMPLES = 3072
+
+
+def fit_argv(prefix, *extra):
+    """The CLI of the fit phases: the imagenet_resnet50 preset (ResNet-50,
+    batch 128, bf16, 6 steps a call) on the in-memory pipeline, 2 epochs,
+    the bn-ema switch at step 12, a Speedometer window every dispatch."""
+    return ["--preset", "imagenet_resnet50", "--pipeline", "memory",
+            "--num-examples", str(FIT_EXAMPLES), "--num-epochs", "2",
+            "--bn-ema-warmup", "12", "--frequent", "6",
+            "--model-prefix", prefix, *extra]
+
+
+class LogLines:
+    """The messages the port's logger emits inside the ``with`` block."""
+
+    def __enter__(self):
+        import logging
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+        logging.getLogger("resnet_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger("resnet_tpu_torch").removeHandler(self.handler)
+
+    def numbers(self, pattern):
+        return [float(m.group(1)) for m in map(re.compile(pattern).search,
+                                               self.lines) if m]
+
+
+def eval_logits(state, images):
+    with torch.no_grad():
+        state.model.eval()
+        return state.model(images)
+
+
+@contextlib.contextmanager
+def timed_train_calls():
+    """CUDA events around every train call the Solver makes: yields the
+    list of (start, end) event pairs, in call order."""
+    import resnet_tpu_torch.train.solver as solver_module
+    make = solver_module.make_train_step
+    events = []
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+    solver_module.make_train_step = timed_make
+    try:
+        yield events
+    finally:
+        solver_module.make_train_step = make
+
+
+def fit_path_phase(main_img_s):
+    """``train_resnet.main`` at the preset: 2 epochs with a checkpoint and a
+    validation pass each; CUDA events around each train call give the
+    device's share of the second epoch's wall time (the rest is the host:
+    the loop, the prefetch, the metric reads). Then the checkpoint's save
+    and load times, and ``fit_params``: the epoch checkpoint as an MXNet
+    ``.params`` file, loaded by ``--load-epoch``, gives bit-equal eval
+    logits."""
+    import os
+    from resnet_tpu_torch import train_resnet
+    from resnet_tpu_torch.config import build_parser, config_from_args
+    from resnet_tpu_torch.ops.augment_fused import \
+        fused_crop_mirror_normalize as k1
+    from resnet_tpu_torch.train import checkpoint as ckpt
+    from resnet_tpu_torch.train.solver import Solver, _eval_fn
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.utils.export import save_mxnet_style
+    from resnet_tpu_torch.utils.profiler import input_overhead
+    with trace_dir() as tmp:
+        prefix = os.path.join(tmp, "r50")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        tic = time.perf_counter()
+        with LogLines() as log, timed_train_calls() as calls:
+            state = train_resnet.main(fit_argv(prefix))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - tic
+        launches = k1.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        call_ms = [a.elapsed_time(b) for a, b in calls]
+        windows = log.numbers(r"Speed: ([\d.]+) samples/sec")
+        switched = log.numbers(r"bn-ema: warmup done at step (\d+)")
+        epoch_s = log.numbers(r"Epoch\[\d+\] Time cost=([\d.]+)")
+        losses = log.numbers(r"Epoch\[\d+\] Train-cross-entropy=([-\w.]+)")
+        val = log.numbers(r"Epoch\[\d+\] Validation-accuracy=([-\w.]+)")
+        steps = 2 * FIT_EXAMPLES // 128
+        require(state.step == steps, f"fit ended at step {state.step}")
+        require(switched == [12.0], f"bn-ema switched at {switched}")
+        require(len(losses) == 2 and all(map(math.isfinite, losses)),
+                f"epoch losses {losses}")
+        require(len(val) == 2 and len(windows) == 6 and len(call_ms) == 8,
+                f"{val} {windows} {call_ms}")
+        require(launches == steps, f"K1 launched {launches} times in "
+                f"{steps} steps")
+        cfg = config_from_args(build_parser().parse_args(fit_argv(prefix)))
+        # the checkpoint's save and load
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ckpt.save_checkpoint(os.path.join(tmp, "copy"), 2, state)
+        save_s = time.perf_counter() - tic
+        fresh = create_train_state(cfg, device="cuda")
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ckpt.load_checkpoint(prefix, 2, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - tic
+        require(fresh.step == steps and all(
+            torch.equal(a, b) for a, b in zip(fresh.momentum,
+                                              state.momentum)),
+                "the loaded checkpoint differs from the state")
+        # fit_params
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        images = torch.randint(0, 256, (64, OUT, OUT, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        x = _eval_fn(cfg)(images)
+        want = eval_logits(state, x)
+        mx_prefix = os.path.join(tmp, "mx")
+        save_mxnet_style(mx_prefix, 2, state, fmt="params")
+        mx_cfg = config_from_args(build_parser().parse_args(
+            fit_argv(mx_prefix, "--load-epoch", "2")))
+        loaded = Solver(mx_cfg, device="cuda").init_state()
+        got = eval_logits(loaded, x)
+        require(loaded.step == steps and not any(
+            m.any() for m in loaded.momentum), ".params resume state")
+        require(torch.equal(got, want), "eval logits after the .params "
+                f"round trip differ by {(got - want).abs().max().item()}")
+        emit(phase="fit_params", file=os.path.basename(mx_prefix)
+             + "-0002.params", step=loaded.step, logits=tuple(got.shape),
+             bit_equal=True)
+        del fresh, loaded, state
+    steady = windows[1:]
+    fit_img_s = statistics.median(steady)
+    busy_ms = sum(call_ms[4:])        # the 4 calls of epoch 1
+    fields = dict(
+        phase="fit_path", model="resnet50", batch=128, steps_per_call=6,
+        examples=FIT_EXAMPLES, epochs=2, steps=steps, wall_seconds=wall_s,
+        window_img_per_s=windows, steady_windows=steady,
+        median_img_per_s=fit_img_s, bn_ema_switch_step=switched[0],
+        epoch_seconds=epoch_s, epoch_train_cross_entropy=losses,
+        val_accuracy=val, checkpoint_save_s=save_s, checkpoint_load_s=load_s,
+        peak_memory_gib=peak_gib, k1_launches=launches, call_device_ms=call_ms,
+        device_idle_share=1 - busy_ms / (epoch_s[1] * 1e3),
+        card=nvidia_smi_line())
+    if main_img_s:
+        fields.update(main_path_img_per_s=main_img_s,
+                      input_overhead=input_overhead(1 / fit_img_s,
+                                                    1 / main_img_s))
+    emit(**fields)
+    torch.cuda.empty_cache()
     return launches
+
+
+def _state_gap(path_a, path_b, init):
+    """How far apart two checkpoint files are, relative to how far training
+    moved: ``||(a - init) - (b - init)|| / ||a - init||`` over all model
+    tensors (params and BN stats) together, and ``||a - b|| / ||a||`` over
+    the momentum buffers; the larger of the two."""
+    a = torch.load(path_a, map_location="cpu", weights_only=True)
+    b = torch.load(path_b, map_location="cpu", weights_only=True)
+    require(a["step"] == b["step"], f"steps {a['step']} {b['step']}")
+
+    def rel(xs, ys, base):
+        num = sum(float(((x.double() - y.double()) ** 2).sum())
+                  for x, y in zip(xs, ys))
+        den = sum(float(((x.double() - z.double()) ** 2).sum())
+                  for x, z in zip(xs, base))
+        return math.sqrt(num / max(den, 1e-300))
+    zeros = [torch.zeros_like(m) for m in a["momentum"]]
+    return max(rel(list(a["model"].values()), list(b["model"].values()),
+                   list(init.values())),
+               rel(a["momentum"], b["momentum"], zeros))
+
+
+def fit_resume_phase():
+    """Real CLI processes: two uninterrupted runs (the run-to-run gap), and
+    one that gets SIGTERM mid-epoch, exits 143 and is relaunched with
+    ``--auto-resume``; its final state may be no further from the first
+    run than twice the run-to-run gap (bit-equal where that gap is 0).
+    One epoch at 112x112 keeps the four processes short. The CPU test
+    ``test_kill_and_resume_is_bit_equal`` holds the replay bit for bit;
+    on the card two runs part (cuDNN's autotuned algorithms and atomics
+    differ between processes, and the step amplifies rounding), so this
+    phase shows that the resumed run is the same training, no more."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(prefix, *extra):
+        return [sys.executable, "-u", "-m", "resnet_tpu_torch.train_resnet",
+                *fit_argv(prefix, "--num-epochs", "1", "--image-shape",
+                          "112,112,3", *extra)]
+
+    def run(cmd, kill_at=None):
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        out, killed = [], False
+        try:
+            for line in proc.stdout:
+                out.append(line)
+                if kill_at and kill_at in line and not killed:
+                    proc.send_signal(signal.SIGTERM)
+                    killed = True
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return rc, "".join(out)
+
+    with trace_dir() as tmp:
+        tic = time.perf_counter()
+        rcs = {}
+        for name in ("a", "b"):
+            rcs[name], out = run(cli(os.path.join(tmp, name)))
+            require(rcs[name] == 0, f"run {name} failed:\n{out[-3000:]}")
+        killed = os.path.join(tmp, "killed")
+        rc_kill, out = run(cli(killed), kill_at="Epoch[0] Batch [12]")
+        require(rc_kill == 143, f"killed run exited {rc_kill}:\n{out[-3000:]}")
+        saved = re.findall(r"checkpointed epoch 0 batch (\d+)", out)
+        rc_res, out = run(cli(killed, "--auto-resume"))
+        require(rc_res == 0, f"resumed run failed:\n{out[-3000:]}")
+        require("Resumed from epoch 0" in out, "the relaunch did not resume")
+        from resnet_tpu_torch.config import build_parser, config_from_args
+        from resnet_tpu_torch.train.state import create_train_state
+        # the seeded initial state every run starts from
+        init = create_train_state(config_from_args(build_parser().parse_args(
+            cli(killed)[4:])), device="cpu").model.state_dict()
+        run_gap = _state_gap(os.path.join(tmp, "a", "1.pt"),
+                             os.path.join(tmp, "b", "1.pt"), init)
+        resume_gap = _state_gap(os.path.join(tmp, "a", "1.pt"),
+                                os.path.join(killed, "1.pt"), init)
+        seconds = time.perf_counter() - tic
+    require(resume_gap <= 2 * run_gap if run_gap > 0 else resume_gap == 0,
+            f"resumed run {resume_gap} from the uninterrupted one, runs "
+            f"{run_gap} from each other")
+    emit(phase="fit_resume", killed_exit=rc_kill, saved_at_batch=saved,
+         run_to_run_gap=run_gap, resume_gap=resume_gap,
+         seconds=seconds, processes=4)
+
+
+def prefetch_check_phase(cfg):
+    """Batches through the pinned, side-stream ``prefetch_grouped`` equal
+    the host batches over two epochs while the K-step call trains on them:
+    a checksum of every batch is taken on the compute stream after the
+    train call and its reference dropped, so that memory handed back too
+    early would show; the first group of each epoch is also compared byte
+    for byte."""
+    import numpy as np
+    from resnet_tpu_torch.data.loader import MemoryIter
+    from resnet_tpu_torch.data.prefetch import prefetch_grouped
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    k, bs, n_batches = 6, 128, 15        # two groups and a 3-batch tail
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (bs * n_batches, OUT, OUT, 3), np.uint8)
+    labels = rng.integers(0, 1000, bs * n_batches).astype(np.int32)
+    it = MemoryIter(images, labels, bs, seed=0)
+    state = create_train_state(cfg, device="cuda")
+    steps = {n: make_train_step(augment_fn=make_augment_fn(cfg),
+                                steps_per_dispatch=n) for n in (1, k)}
+    weights = {}
+
+    def checksum(t):
+        flat = t.reshape(-1).to(torch.int64)
+        if flat.numel() not in weights:
+            weights[flat.numel()] = torch.arange(
+                flat.numel(), device=t.device, dtype=torch.int64) % 251 + 1
+        return torch.stack([flat.sum(), (flat * weights[flat.numel()]).sum()])
+
+    def host_checksum(a):
+        flat = a.reshape(-1).astype(np.int64)
+        w = np.arange(flat.size, dtype=np.int64) % 251 + 1
+        return [int(flat.sum()), int((flat * w).sum())]
+
+    sums, want, ns, exact = [], [], [], 0
+    for epoch in (0, 1):
+        host = list(it.epoch_iter(epoch))
+        i = 0
+        for batch, n in prefetch_grouped(it.epoch_iter(epoch), k, size=2,
+                                         device="cuda"):
+            group = host[i:i + n]
+            if i == 0:
+                for name, t in batch.items():
+                    require(np.array_equal(
+                        t.cpu().numpy(),
+                        np.stack([b[name] for b in group])),
+                        f"epoch {epoch} group 0 {name} differs")
+                    exact += 1
+            state, _ = steps[n](state, batch)
+            sums.append({name: checksum(t) for name, t in batch.items()})
+            want.append({name: host_checksum(
+                np.stack([b[name] for b in group]) if n > 1
+                else group[0][name]) for name in batch})
+            ns.append(n)
+            i += n
+            del batch
+        require(i == n_batches, f"epoch {epoch}: {i} batches")
+    torch.cuda.synchronize()
+    got = [{name: c.tolist() for name, c in s.items()} for s in sums]
+    require(got == want, "a prefetched batch differs from its host batch")
+    emit(phase="prefetch_check", epochs=2, dispatch_sizes=ns,
+         checksummed=len(got), compared_exactly=exact, equal=True)
+    del state, steps
+    torch.cuda.empty_cache()
 
 
 def build_phase():
@@ -1095,15 +1432,73 @@ def build_phase():
                 f"{name}: {usage[name]} (spill stores in the build log)")
 
 
+FIT_PHASES = ("fit", "fit_resume", "prefetch")
+
+
+def child_phases(phases, main_img_s=None):
+    """Run ``phases`` in a fresh process of this script, relay its output,
+    and return the JSON objects it printed.
+
+    ``mm_timing`` and the entry point's phases run last, each in a process
+    of its own. In four full runs of this script in one process on the
+    card, ``mm_timing``'s profiled windows lost kernels every time, with or
+    without the fit phases before it; alone, or right after the trace
+    probe, it passed. And after ``mm_timing`` a process's host is slower
+    (``main``'s comment on it), which the fit loop's img/s would read."""
+    cmd = [sys.executable, "-u", __file__, "--only", ",".join(phases),
+           "--child", "--main-img-s", str(main_img_s or 0.0)]
+    sys.stdout.flush()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            sys.stdout.write(line)
+            lines.append(line)
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    sys.stdout.flush()
+    require(rc == 0, f"the phases {phases} failed (exit {rc})")
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def run_child(only, main_img_s):
+    """The body of a ``child_phases`` process."""
+    from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.models.registry import get_model
+    if "mm_timing" in only:
+        full = imagenet_resnet50()
+        full.train.bn_ema = False
+        ops_a, ops_b, _ = r50_op_shapes(get_model(full), BATCH, OUT)
+        emit(phase="mm_step_ms", step_ms=time_matmul_kernels(ops_a, ops_b))
+    if "fit" in only:
+        fit_path_phase(main_img_s)
+    if "fit_resume" in only:
+        fit_resume_phase()
+    if "prefetch" in only:
+        prefetch_check_phase(imagenet_resnet50())
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="", help="comma-separated phases "
                         "to run after the build (default: all)")
-    only = set(filter(None, parser.parse_args(argv).only.split(",")))
+    # a process of child_phases
+    parser.add_argument("--child", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--main-img-s", type=float, default=0.0,
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if args.child:
+        return run_child(only, args.main_img_s)
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.models.registry import get_model
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -1168,24 +1563,29 @@ def main(argv=None):
     if on("grouped_reference"):
         reference_check("grouped_reference_check", n=16, bn_ema=False,
                         bn_subsample=8, bn_grouped=True)
+    main_img_s = None
     if on("main"):
-        main_l = train_path("main_path", cfg, 3, {k1: 1}, eval_after=True)
+        main_l, main_img_s = train_path("main_path", cfg, 3, {k1: 1},
+                                        eval_after=True)
     if on("chain"):
-        chain_l = train_path("chain_path", chain, 3, {
+        chain_l, _ = train_path("chain_path", chain, 3, {
             k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
             fu.fused_backward: 36})
     if on("fused"):
-        fused_l = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
+        fused_l, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
     if on("fullbatch"):
         train_path("fullbatch_path", full, 2, {k1: 1})
     if on("trace_probe"):
         trace_probe_phase()
-    # last: its per-shape profiled windows leave the host slower for the
-    # rest of the process (the bn-ema path's calls took 0.87 s instead of
-    # 0.67 after them, on the card), which the paths' wall times above
-    # would read
+    # last, in processes of their own (child_phases): mm_timing's
+    # per-shape profiled windows leave the host slower for the rest of the
+    # process (the bn-ema path's calls took 0.87 s instead of 0.67 after
+    # them, on the card), which the paths' wall times above would read
     if on("mm_timing"):
-        step_ms = time_matmul_kernels(ops_a, ops_b)
+        step_ms = next(line["step_ms"] for line in child_phases(["mm_timing"])
+                       if line.get("phase") == "mm_step_ms")
+    if any(map(on, FIT_PHASES)):
+        child_phases([p for p in FIT_PHASES if on(p)], main_img_s)
 
     if not only:
         def mm_kernel(name, source, replaces, launches, err, t):

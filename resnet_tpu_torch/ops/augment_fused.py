@@ -230,8 +230,8 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
                            dtype=torch.bfloat16,
                            dims: Optional[torch.Tensor] = None,
                            s2d: bool = False,
-                           rows: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           rows: Optional[torch.Tensor] = None,
+                           plain: bool = False) -> torch.Tensor:
     """Train-time ImageNet augmentation through the fused kernel: MXNet
     random-resized-crop boxes (full-image domain when ``dims`` gives the
     original sizes), mirror with p=0.5, HSL/contrast/illumination jitter,
@@ -239,6 +239,8 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
 
     The per-image values are drawn from ``generator`` in the order boxes,
     mirror, photometrics, unless ``rows`` (N, 12) supplies them.
+    ``plain=True`` applies them with the kernel's plain PyTorch version on
+    every device (``augment_impl="xla"``).
     """
     if cfg.max_rotate_angle > 0 or cfg.max_shear_ratio > 0:
         raise NotImplementedError(
@@ -253,7 +255,9 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
         valid = (dims[:, 2], dims[:, 3]) if dims is not None else None
         ph = sample_photometric(generator, cfg, n, device=dev)
         rows = augment_rows(boxes, flip, valid, ph, n, (hc, wc), device=dev)
-    return fused_crop_mirror_normalize(
+    apply = (fused_crop_mirror_normalize_reference if plain
+             else fused_crop_mirror_normalize)
+    return apply(
         canvas_u8, rows, out_hw, cfg.mean_rgb, cfg.std_rgb, dtype, s2d=s2d,
         hsl=bool(cfg.random_h or cfg.random_s or cfg.random_l),
         contrast=cfg.max_random_contrast > 0,
@@ -263,13 +267,16 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
 def make_augment_fn(cfg: Config) -> Callable:
     """The train step's augmenter for ``cfg``: output ``image_shape[:2]``
     in the compute dtype, in the s2d block layout when ``aug_s2d`` and
-    ``stem_s2d`` are both set. Returns
+    ``stem_s2d`` are both set; through the kernel unless
+    ``augment_impl="xla"`` selects the plain version. Returns
     ``f(canvas_u8, generator, dims=None, rows=None)``."""
     dtype = DTYPES[cfg.train.dtype]
     s2d = cfg.train.aug_s2d and cfg.train.stem_s2d
     out_hw = tuple(cfg.data.image_shape[:2])
+    plain = cfg.data.augment_impl == "xla"
 
     def augment_fn(canvas_u8, generator, dims=None, rows=None):
         return augment_imagenet_fused(canvas_u8, generator, cfg.data, out_hw,
-                                      dtype, dims=dims, s2d=s2d, rows=rows)
+                                      dtype, dims=dims, s2d=s2d, rows=rows,
+                                      plain=plain)
     return augment_fn

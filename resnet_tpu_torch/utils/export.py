@@ -70,3 +70,39 @@ def load_mxnet_params(state, args: Dict[str, np.ndarray],
                 raise ValueError(f"{name}: table shape {arr.shape}, model "
                                  f"shape {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(arr)))
+
+
+def save_mxnet_style(path_prefix: str, epoch: int, state,
+                     fmt: str = "npz") -> str:
+    """Write the reference's checkpoint layout from a train state (or a
+    bare model).
+
+    ``fmt="params"``: ``{prefix}-{epoch:04d}.params`` in MXNet's dmlc
+    NDArray-list binary format (``utils/mxnet_params.py``), loadable by
+    ``mx.nd.load`` and by the JAX package. ``fmt="npz"``: the same flat
+    ``arg:``/``aux:`` dict as ``{prefix}-{epoch:04d}.params.npz``.
+    """
+    args, auxs = export_mxnet_params(state)
+    if fmt == "params":
+        from resnet_tpu_torch.utils.mxnet_params import save_params
+        out = f"{path_prefix}-{epoch:04d}.params"
+        save_params(out, args, auxs)
+        return out
+    if fmt != "npz":
+        raise ValueError(f"fmt must be 'params' or 'npz', got {fmt!r}")
+    flat = {f"arg:{k}": v for k, v in args.items()}
+    flat.update({f"aux:{k}": v for k, v in auxs.items()})
+    out = f"{path_prefix}-{epoch:04d}.params.npz"
+    np.savez(out, **flat)
+    return out
+
+
+def load_mxnet_checkpoint(path_prefix: str, epoch: int, state) -> None:
+    """Fill a train state's (or a bare model's) parameters and BN running
+    stats from ``{prefix}-{epoch:04d}.params``, written by MXNet's
+    ``mx.model.save_checkpoint``, by the JAX package or by
+    :func:`save_mxnet_style`. Momentum is not in the file; the caller
+    restarts it at zero, as an MXNet resume does."""
+    from resnet_tpu_torch.utils.mxnet_params import load_params
+    args, auxs = load_params(f"{path_prefix}-{epoch:04d}.params")
+    load_mxnet_params(state, args, auxs)

@@ -624,3 +624,101 @@ def test_trace_probe_reads_the_cards_kernel_events(cuda, tmp_path, capsys):
     assert "fused_crop_mirror_normalize_kernel" in summary["groups"]
     k1 = [e for e in summary["top"] if "fused_crop_mirror" in e["name"]]
     assert k1 and k1[0]["count"] == 2
+
+
+# -- the training entry point's card paths ----------------------------------
+
+def test_prefetch_yields_device_batches_equal_to_the_host(cuda, monkeypatch):
+    from resnet_tpu_torch.data.prefetch import (prefetch_grouped,
+                                                prefetch_to_device)
+    recorded = []
+    record_stream = torch.Tensor.record_stream
+
+    def spy(self, stream):
+        recorded.append(stream)
+        return record_stream(self, stream)
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    rng = np.random.default_rng(0)
+    host = [{"image": rng.integers(0, 256, (4, 8, 8, 3), np.uint8),
+             "label": rng.integers(0, 9, 4).astype(np.int32)}
+            for _ in range(5)]
+    single = list(prefetch_to_device(iter(host), size=2, device=cuda))
+    grouped = list(prefetch_grouped(iter(host), 2, size=2, device=cuda))
+    assert [n for _, n in grouped] == [2, 2, 1]
+    torch.cuda.synchronize()
+    for got, want in zip(single, host):
+        for k in want:
+            assert got[k].is_cuda
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+    for (got, n), i in zip(grouped, (0, 2, 4)):
+        for k in host[0]:
+            want = (np.stack([b[k] for b in host[i:i + n]]) if n > 1
+                    else host[i][k])
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want)
+    # every tensor handed out is tied to the consuming stream
+    assert len(recorded) == 2 * (5 + 3)
+    assert all(s == torch.cuda.current_stream() for s in recorded)
+
+
+def _small_fit_cfg(prefix):
+    from resnet_tpu_torch.config import imagenet_resnet50
+    cfg = imagenet_resnet50()
+    cfg.model.depth = 18
+    cfg.data.image_shape, cfg.data.num_classes = (64, 64, 3), 10
+    cfg.data.num_examples, cfg.data.pipeline = 64, "memory"
+    cfg.train.batch_size, cfg.train.steps_per_dispatch = 16, 2
+    cfg.train.num_epochs, cfg.train.bn_ema_warmup = 1, 2
+    cfg.train.model_prefix, cfg.train.frequent = prefix, 2
+    return cfg
+
+
+def test_two_dispatch_fit_runs_on_the_card_with_k1(cuda, tmp_path):
+    from resnet_tpu_torch.data.loader import make_train_iter, make_val_iter
+    from resnet_tpu_torch.train.solver import Solver
+    cfg = _small_fit_cfg(str(tmp_path / "r18"))
+    before = fused_crop_mirror_normalize.launches
+    solver = Solver(cfg)
+    state = solver.fit(make_train_iter(cfg), make_val_iter(cfg))
+    assert solver.device.type == "cuda" and state.step == 4
+    assert fused_crop_mirror_normalize.launches - before == 4
+    assert np.isfinite(solver.last_train_metrics["cross-entropy"])
+    assert all(m.is_cuda for m in state.momentum)
+
+
+def test_checkpoint_restores_momentum_and_step_on_the_card(cuda, tmp_path):
+    from resnet_tpu_torch.train import checkpoint as ckpt
+    from resnet_tpu_torch.train.state import create_train_state
+    cfg = _small_fit_cfg(str(tmp_path / "ck"))
+    state = create_train_state(cfg)
+    for i, m in enumerate(state.momentum):
+        m.fill_(i * 0.5 + 0.25)
+    state.step = 17
+    ckpt.save_checkpoint(cfg.train.model_prefix, 3, state,
+                         iter_state={"epoch": 3, "batch": 5})
+    payload = torch.load(f"{cfg.train.model_prefix}/3.pt", map_location="cpu",
+                         weights_only=True)
+    assert payload["step"] == 17 and payload["iter_state"]["batch"] == 5
+    fresh = create_train_state(cfg)
+    fresh, iter_state = ckpt.load_checkpoint(cfg.train.model_prefix, 3, fresh)
+    assert fresh.step == 17 and iter_state == {"epoch": 3, "batch": 5}
+    for a, b in zip(fresh.momentum, state.momentum):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+def test_augment_impl_xla_takes_the_plain_version(cuda):
+    from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    canvas, _ = _inputs(cuda, hc=64, wc=64)
+    outs = {}
+    for impl in ("auto", "xla"):
+        cfg = imagenet_resnet50()
+        cfg.data.image_shape, cfg.train.dtype = (32, 32, 3), "float32"
+        cfg.data.augment_impl = impl
+        before = fused_crop_mirror_normalize.launches
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        outs[impl] = make_augment_fn(cfg)(canvas, gen)
+        outs[impl + " launches"] = fused_crop_mirror_normalize.launches - before
+    assert outs["auto launches"] == 1 and outs["xla launches"] == 0
+    # the same sampled values through the kernel and its plain version
+    torch.testing.assert_close(outs["auto"], outs["xla"], rtol=1e-4,
+                               atol=5e-2)

@@ -49,7 +49,9 @@ def test_forbidden_match_is_exact():
 
 def test_importing_the_train_step_loads_no_jax():
     code = ("import sys, resnet_tpu_torch.train.steps, "
-            "resnet_tpu_torch.ops.augment_fused, resnet_tpu_torch.utils.export\n"
+            "resnet_tpu_torch.ops.augment_fused, resnet_tpu_torch.utils.export, "
+            "resnet_tpu_torch.train_resnet, resnet_tpu_torch.data.pipeline, "
+            "resnet_tpu_torch.data.im2rec\n"
             f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + "
             f"'.') for f in {FORBIDDEN!r})]\n"
             "assert not bad, bad\n")
