@@ -39,8 +39,30 @@ operations bounds at this card's lane-instruction rate, printed on the
 changed at a time (no canvas rows staged, HSL off, standard layout,
 float32 output) and the trace probe's launch with and without staging.
 
+The rest of the model family and the augmentation variants: one float32
+step each of ResNeXt-50 (``resnext_reference``), v2 ResNet-50
+(``v2_reference``), CIFAR ResNet-18 (``cifar_reference``), the mask
+max-pool backward (``mask_pool_reference``) and remat
+(``remat_reference``, also against the card's step without remat) against
+the CPU path; the device rotate/shear warp against the CPU's, with K1
+launching no time on its path (``rotate_check``); the train calls of
+ResNeXt-50 32x4d at its preset, block-diagonal (``resnext_path``) and
+through cuDNN's grouped convolution (``resnext_grouped_path``), of the
+CIFAR ResNet-18 preset (``cifar_path``) and of ResNet-152 at the per-device
+share of ``imagenet_resnet152_dp`` with and without remat
+(``remat_path``); and K1's split mode (``k1_split_mode``: the kernel at
+identity normalization against its plain version, the split augmenter
+against the fused one, and the preset's path with
+``augment_impl="pallas-split"``).
+
 ``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
-kernel); with no arguments every phase runs.
+kernel); with no arguments every phase runs. The phases: k1, k1_split,
+mm_check, k3_path, k5_check, reduce_probe, reference, chain_reference,
+fused_reference, subsample_reference, grouped_reference,
+resnext_reference, v2_reference, cifar_reference, mask_pool_reference,
+remat_reference, rotate_check, main, chain, fused, fullbatch, resnext,
+resnext_grouped, cifar, remat, k1_split_mode (after main, for its img/s),
+trace_probe, mm_timing, fit, fit_resume, prefetch.
 """
 
 import argparse
@@ -360,28 +382,42 @@ def augment_timing(cfg):
     return main
 
 
-def reference_check(phase, n=8, **train_overrides):
-    """One float32 train step of full-width ResNet-50 on a small input
-    (``n`` images), on the card (through the kernels) and on the CPU
-    (through their plain versions) from the same weights and rows: the CPU
-    path is the one the tests hold against the JAX package.
-    ``train_overrides`` set fields of ``cfg.train`` (the execution-path and
-    BatchNorm switches)."""
-    from resnet_tpu_torch.config import imagenet_resnet50
+def reference_check(phase, n=8, preset="imagenet_resnet50",
+                    model_overrides=None, data_overrides=None,
+                    **train_overrides):
+    """One float32 train step of a full-width net on a small input (``n``
+    images), on the card (through the kernels) and on the CPU (through
+    their plain versions) from the same weights and rows: the CPU path is
+    the one the tests hold against the JAX package. The net is ``preset``
+    (ResNet-50 unless named) with ``model_overrides``, ``data_overrides``
+    and ``train_overrides`` set on ``cfg.model``, ``cfg.data`` and
+    ``cfg.train`` (the execution-path and BatchNorm switches). Returns the
+    card's train state."""
+    from resnet_tpu_torch.config import PRESETS
+    from resnet_tpu_torch.ops.augment import sample_cifar_rows
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
     from resnet_tpu_torch.train.steps import make_train_step
-    cfg = imagenet_resnet50()
+    cfg = PRESETS[preset]()
     cfg.train.dtype = "float32"
     cfg.data.image_shape = (96, 96, 3)
-    for name, value in train_overrides.items():
-        setattr(cfg.train, name, value)
+    for section, overrides in ((cfg.model, model_overrides),
+                               (cfg.data, data_overrides),
+                               (cfg.train, train_overrides)):
+        for name, value in (overrides or {}).items():
+            setattr(section, name, value)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    canvas, rows, _ = aug_inputs(cfg.data, gen, n, False, canvas_side=112,
-                                 out=96)
+    if cfg.model.dataset == "cifar10":
+        side = cfg.data.image_shape[0]
+        canvas = torch.randint(0, 256, (n, side, side, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        rows = sample_cifar_rows(gen, cfg.data, n, device="cuda")
+    else:
+        canvas, rows, _ = aug_inputs(cfg.data, gen, n, False,
+                                     canvas_side=112, out=96)
     batch = {"image": canvas,
-             "label": torch.randint(0, 1000, (n,), generator=gen,
-                                    device="cuda"),
+             "label": torch.randint(0, cfg.data.num_classes, (n,),
+                                    generator=gen, device="cuda"),
              "rows": rows}
     results = {}
     with full_float32():
@@ -408,8 +444,11 @@ def reference_check(phase, n=8, **train_overrides):
                    [st_cpu.momentum[i] for i in head])
     stats_err = rel(list(st_gpu.model.buffers()), list(st_cpu.model.buffers()))
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    emit(phase=phase, model="resnet50 f32", batch=n,
+    emit(phase=phase, model=f"{preset} f32" if preset != "imagenet_resnet50"
+         else "resnet50 f32", batch=n,
          image=list(cfg.data.image_shape), switches=train_overrides,
+         model_switches=model_overrides or {},
+         data_switches=data_overrides or {},
          loss_cuda=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=loss_err,
          momentum_rel_err=mom_err, fc_momentum_rel_err=head_err,
          running_stats_rel_err=stats_err)
@@ -423,6 +462,7 @@ def reference_check(phase, n=8, **train_overrides):
     require(stats_err < 1e-3, "the running statistics differ from the CPU "
             "path")
     require(mom_err < 1e-1, "the update differs from the CPU path")
+    return st_gpu
 
 
 # ---------------------------------------------------------------------------
@@ -995,34 +1035,46 @@ def profile_call(phase, step, state, batch, images, untraced_ms):
          top_kernels=[{"name": n[:90], "ms": ms} for n, ms in top])
 
 
-def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
-    """One full-width train path: ResNet-50, batch 128, bf16, 6 steps a
-    call; 1 warm-up call and ``timed_calls`` timed ones. ``per_step`` maps
-    each kernel wrapper on this path to its expected launches per step; the
-    counts are set to 0 just before the path is driven and read just after.
-    Returns (wrapper -> launches, img/s of the median call)."""
-    from resnet_tpu_torch.ops.augment import eval_center_crop
+def train_path(phase, cfg, timed_calls, per_step, eval_after=False,
+               model="resnet50", absent=(), **fields):
+    """One full-width train path: ``model`` as ``cfg`` builds it (ResNet-50,
+    batch 128, bf16, 6 steps a call, unless ``cfg`` says otherwise); 1
+    warm-up call and ``timed_calls`` timed ones. ``per_step`` maps each
+    kernel wrapper on this path to its expected launches per step, and
+    each wrapper of ``absent`` must launch no time; the counts are set to 0
+    just before the path is driven and read just after. ``fields`` go on
+    the phase's line. Returns (wrapper -> launches, img/s of the median
+    call, peak GiB allocated)."""
+    from resnet_tpu_torch.config import DTYPES
+    from resnet_tpu_torch.ops.augment import eval_center_crop, normalize
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
     from resnet_tpu_torch.train.state import create_train_state
     from resnet_tpu_torch.train.steps import eval_step, make_train_step
     torch.backends.cudnn.benchmark = True
     k = cfg.train.steps_per_dispatch
     bs = cfg.train.batch_size
+    cifar = cfg.model.dataset == "cifar10"
+    side = cfg.data.image_shape[0] if cifar else CANVAS
     state = create_train_state(cfg, device="cuda")
     step = make_train_step(label_smooth=cfg.train.label_smooth,
                            augment_fn=make_augment_fn(cfg),
                            steps_per_dispatch=k)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pool = [{
-        "image": torch.randint(0, 256, (k, bs, CANVAS, CANVAS, 3),
-                               generator=gen, device="cuda",
-                               dtype=torch.uint8),
-        "label": torch.randint(0, cfg.data.num_classes, (k, bs),
-                               generator=gen, device="cuda"),
-        # full-canvas dims: orig == eff == canvas
-        "dims": torch.full((k, bs, 4), CANVAS, dtype=torch.int32,
-                           device="cuda"),
-    } for _ in range(2)]
+    pool = []
+    for _ in range(2):
+        batch = {
+            "image": torch.randint(0, 256, (k, bs, side, side, 3),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.uint8),
+            "label": torch.randint(0, cfg.data.num_classes, (k, bs),
+                                   generator=gen, device="cuda")}
+        if not cifar:
+            # full-canvas dims: orig == eff == canvas
+            batch["dims"] = torch.full((k, bs, 4), CANVAS, dtype=torch.int32,
+                                       device="cuda")
+        if k == 1:
+            batch = {name: v[0] for name, v in batch.items()}
+        pool.append(batch)
     # the shapes this file times are derived from the model's structure:
     # hold them against what the running model's units really receive
     seen = []
@@ -1032,7 +1084,7 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for wrapper in per_step:
+    for wrapper in (*per_step, *absent):
         wrapper.launches = 0
     calls, times, losses = 1 + timed_calls, [], []
     for c in range(calls):
@@ -1052,33 +1104,203 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False):
         require(launches[w] == steps * n and launches[w] > 0,
                 f"{phase}: {w.__name__} launched {launches[w]} times in "
                 f"{steps} steps, expected {n} a step")
+    for w in absent:
+        require(w.launches == 0, f"{phase}: {w.__name__} launched "
+                f"{w.launches} times, expected none")
     require(state.step == steps, "step count")
-    want_inputs = r50_op_shapes(state.model, bs, OUT)[2]
-    require(seen == want_inputs * k, f"{phase}: the units saw {seen[:3]}..., "
-            f"the shape table assumes {want_inputs[:3]}...")
+    if not cifar and state.model.units()[0].bottleneck:
+        want_inputs = r50_op_shapes(state.model, bs, OUT)[2]
+        if cfg.train.remat or cfg.train.remat_policy != "none":
+            # the backward runs each unit once more, last unit first
+            want_inputs = want_inputs + want_inputs[::-1]
+        require(seen == want_inputs * k, f"{phase}: the units saw "
+                f"{seen[:3]}..., the shape table assumes {want_inputs[:3]}...")
     call_s = statistics.median(times)
-    emit(phase=phase, model="resnet50", batch=bs, steps_per_call=k,
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(phase=phase, model=model, batch=bs, steps_per_call=k,
          calls=calls, warmup_calls=1, losses=losses, call_seconds=times,
          median_call_seconds=call_s, img_per_s=k * bs / call_s,
          bn_ema=cfg.train.bn_ema, unit_chain=cfg.train.unit_chain,
          fused_convbn=cfg.train.fused_convbn,
          launches={w.__name__: n for w, n in launches.items()},
          launches_per_step={w.__name__: n for w, n in per_step.items()},
-         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         absent={w.__name__: w.launches for w in absent},
+         peak_memory_gib=peak_gib, **fields,
          card=nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     profile_call(phase, step, state, pool[0], k * bs, call_s * 1e3)
     if eval_after:
-        metrics = eval_step(state, {"image": pool[0]["image"][0],
-                                    "label": pool[0]["label"][0]},
-                            preprocess_fn=lambda im: eval_center_crop(
-                                im, cfg.data, (OUT, OUT), torch.bfloat16))
+        first = {name: v[0] if k > 1 else v for name, v in pool[0].items()}
+        dtype = DTYPES[cfg.train.dtype]
+        preprocess = (
+            (lambda im: normalize(im, cfg.data.mean_rgb, cfg.data.std_rgb,
+                                  dtype)) if cifar else
+            (lambda im: eval_center_crop(im, cfg.data, (OUT, OUT), dtype)))
+        metrics = eval_step(state, {"image": first["image"],
+                                    "label": first["label"]},
+                            preprocess_fn=preprocess)
         ev = {name: float(v) for name, v in metrics.items()}
         require(ev["count"] == bs and all(map(math.isfinite, ev.values())),
                 f"eval metrics {ev}")
-        emit(phase="eval_step", **ev)
+        emit(phase="eval_step", path=phase, **ev)
     del state, step, pool
     torch.cuda.empty_cache()
-    return launches, k * bs / call_s
+    return launches, k * bs / call_s, peak_gib
+
+
+# ---------------------------------------------------------------------------
+# The rest of the model family and the augmentation variants
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, without autotuning, inside the
+    block: two runs of one computation then give the same bits."""
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def remat_reference_phase():
+    """ResNet-50 with remat: one float32 step on the card against the CPU
+    path (``reference_check``), then on the card against the same step
+    without remat from the same weights and rows: the update (hence the
+    gradient) equal, and the running statistics bit-equal, refreshed once
+    (twice would move them by another 10%)."""
+    with deterministic_cudnn():
+        states = {remat: reference_check(
+            "remat_reference" if remat else "remat_reference_plain",
+            remat=remat) for remat in (True, False)}
+    on, off = states[True], states[False]
+    upd = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(on.momentum, off.momentum))
+    stats_equal = all(torch.equal(a, b) for a, b in
+                      zip(on.model.buffers(), off.model.buffers()))
+    emit(phase="remat_reference_vs_plain", max_update_diff_of_max=upd,
+         running_stats_bit_equal=stats_equal)
+    require(upd < 1e-5, "remat changes the update")
+    require(stats_equal, "remat changes the running statistics")
+
+
+def k1_split_mode_phase(cfg):
+    """K1 in the split mode of ``augment_impl="pallas-split"`` (identity
+    normalization, float32 out, no photometric flags) at the main path's
+    launch, bs128 256 -> 224 in s2d, against its plain version and timed;
+    then the whole split augmenter against the fused one on the same rows,
+    within ``TOL``. Returns K1's split-mode numbers."""
+    from resnet_tpu_torch.ops.augment_fused import (
+        augment_imagenet_fused, fused_crop_mirror_normalize as k1,
+        fused_crop_mirror_normalize_reference as k1_plain)
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    canvas, rows, data = aug_inputs(cfg.data, gen, BATCH, True)
+    args = (canvas, rows, (OUT, OUT), (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+            torch.float32)
+    got, want = k1(*args, s2d=True), k1_plain(*args, s2d=True)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    atol, rtol = TOL[torch.float32]
+    bad = int((diff > atol + rtol * want.abs()).sum())
+    err = float(diff.max())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    t = dict(ms=cuda_median_ms(lambda: k1(*args, s2d=True), flush=flush),
+             plain_ms=cuda_median_ms(lambda: k1_plain(*args, s2d=True),
+                                     flush=flush),
+             **aug_bounds(canvas, rows, (OUT, OUT), torch.float32, False,
+                          False, False))
+    emit(phase="k1_split_mode", batch=BATCH, canvas=CANVAS, out=OUT,
+         s2d=True, dtype="torch.float32", max_abs_diff=err, atol=atol,
+         rtol=rtol, out_of_tolerance=bad, runs=25, **t,
+         share_of_bound=t["bound_ms"] / t["ms"])
+    require(bad == 0, "K1's split mode disagrees with its plain version")
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = [augment_imagenet_fused(canvas, None, data, (OUT, OUT), dtype,
+                                       s2d=True, rows=rows, split=split)
+                for split in (True, False)]
+        d = (outs[0].float() - outs[1].float()).abs()
+        atol, rtol = TOL[dtype]
+        bad = int((d > atol + rtol * outs[1].float().abs()).sum())
+        emit(phase="k1_split_augmenter", dtype=str(dtype),
+             photometric="hsl+contrast+illumination", max_abs_diff=float(
+                 d.max()), atol=atol, rtol=rtol, out_of_tolerance=bad)
+        require(bad == 0, "the split augmenter disagrees with the fused one")
+    del canvas, rows, got, want, diff, outs, d
+    torch.cuda.empty_cache()
+    return dict(t, max_abs_err=err)
+
+
+def rotate_check_phase(cfg):
+    """The device rotate/shear warp at bs128 on 256x256 canvases (angles
+    within 10 degrees, shears within 0.1) on the card against the CPU, and
+    timed; then the whole rotate augmenter, through which K1 launches no
+    time (the warp makes a float32 canvas, and K1 reads uint8)."""
+    from resnet_tpu_torch.ops.augment import rotate_images, sample_rotate
+    from resnet_tpu_torch.ops.augment_fused import (
+        fused_crop_mirror_normalize as k1, make_augment_fn)
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
+    rot = copy.deepcopy(cfg)
+    rot.data = dataclasses.replace(cfg.data, max_rotate_angle=10.0,
+                                   max_shear_ratio=0.1,
+                                   rotate_backend="device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    canvas, _, _ = aug_inputs(rot.data, gen, BATCH, False)
+    angles, shears = sample_rotate(gen, rot.data, BATCH, device="cuda")
+    got = rotate_images(canvas, angles, shears)
+    want = rotate_images(canvas.cpu(), angles.cpu(), shears.cpu())
+    err = float((got.cpu() - want).abs().max())
+    ms = cuda_median_ms(lambda: rotate_images(canvas, angles, shears))
+    fn = make_augment_fn(rot)
+    dims = torch.full((BATCH, 4), CANVAS, dtype=torch.int32, device="cuda")
+    k1.launches = 0
+    out = fn(canvas, gen, dims)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    aug_ms = cuda_median_ms(lambda: fn(canvas, gen, dims), runs=5)
+    emit(phase="rotate_check", batch=BATCH, canvas=CANVAS,
+         max_angle_deg=10.0, max_shear=0.1, max_abs_diff_vs_cpu=err,
+         atol=5e-2, rotate_images_ms=ms, augmenter_ms=aug_ms,
+         k1_launches=launches, out_shape=list(out.shape),
+         card=nvidia_smi_line())
+    require(err < 5e-2, "the card's warp differs from the CPU's")
+    require(launches == 0, "K1 launched on the rotate path")
+    require(bool(torch.isfinite(out.float()).all()), "non-finite output")
+    del canvas, got, want, out
+    torch.cuda.empty_cache()
+
+
+def resnext_cfg(grouped_dense=True):
+    from resnet_tpu_torch.config import imagenet_resnext50
+    cfg = imagenet_resnext50()
+    cfg.train.grouped_dense = grouped_dense
+    return cfg
+
+
+def remat_path_phase(k1):
+    """ResNet-152, bf16, batch 128, 4 steps a call: the per-device share
+    of the imagenet_resnet152_dp preset (2048 over 16 devices) run with
+    num_devices=1, with remat and without; peak memory and img/s of
+    both."""
+    from resnet_tpu_torch.config import imagenet_resnet152_dp
+    out = {}
+    for remat in (True, False):
+        cfg = imagenet_resnet152_dp()
+        cfg.train.num_devices, cfg.train.batch_size = 1, BATCH
+        cfg.train.remat = remat
+        out[remat] = train_path(
+            "remat_path" if remat else "remat_path_off", cfg, 2, {k1: 1},
+            model="resnet152", remat=remat,
+            note="per-device share of imagenet_resnet152_dp (2048/16), "
+                 "num_devices=1")
+    (_, img_on, gib_on), (_, img_off, gib_off) = out[True], out[False]
+    emit(phase="remat_summary", img_per_s_remat=img_on,
+         img_per_s_no_remat=img_off, peak_gib_remat=gib_on,
+         peak_gib_no_remat=gib_off, peak_gib_saved=gib_off - gib_on,
+         card=nvidia_smi_line())
+    require(gib_on < gib_off, "remat saved no memory")
 
 
 # ---------------------------------------------------------------------------
@@ -1563,18 +1785,57 @@ def main(argv=None):
     if on("grouped_reference"):
         reference_check("grouped_reference_check", n=16, bn_ema=False,
                         bn_subsample=8, bn_grouped=True)
+    if on("resnext_reference"):
+        reference_check("resnext_reference", preset="imagenet_resnext50")
+    if on("v2_reference"):
+        reference_check("v2_reference", model_overrides=dict(version=2),
+                        aug_s2d=False)
+    if on("cifar_reference"):
+        reference_check("cifar_reference", preset="cifar10_resnet18",
+                        data_overrides=dict(image_shape=(32, 32, 3)))
+    if on("mask_pool_reference"):
+        reference_check("mask_pool_reference", pool_grad="mask")
+    if on("remat_reference"):
+        remat_reference_phase()
+    if on("rotate_check"):
+        rotate_check_phase(cfg)
     main_img_s = None
     if on("main"):
-        main_l, main_img_s = train_path("main_path", cfg, 3, {k1: 1},
-                                        eval_after=True)
+        main_l, main_img_s, _ = train_path("main_path", cfg, 3, {k1: 1},
+                                           eval_after=True)
     if on("chain"):
-        chain_l, _ = train_path("chain_path", chain, 3, {
+        chain_l, _, _ = train_path("chain_path", chain, 3, {
             k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
             fu.fused_backward: 36})
     if on("fused"):
-        fused_l, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
+        fused_l, _, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
     if on("fullbatch"):
         train_path("fullbatch_path", full, 2, {k1: 1})
+    # the rest of the model family: ResNeXt-50 32x4d at the preset (the
+    # grouped 3x3s block-diagonal, two groups a block) and through cuDNN's
+    # grouped convolution, CIFAR ResNet-18 (no kernel), ResNet-152 with and
+    # without remat
+    if on("resnext"):
+        resnext_l, _, _ = train_path("resnext_path", resnext_cfg(), 3,
+                                     {k1: 1}, eval_after=True,
+                                     model="resnext50_32x4d",
+                                     grouped_dense=True, grouped_merge=2)
+    if on("resnext_grouped"):
+        train_path("resnext_grouped_path", resnext_cfg(False), 2, {k1: 1},
+                   model="resnext50_32x4d", grouped_dense=False)
+    if on("cifar"):
+        from resnet_tpu_torch.config import cifar10_resnet18
+        train_path("cifar_path", cifar10_resnet18(), 20, {}, eval_after=True,
+                   model="cifar_resnet18", absent=(k1,))
+    if on("remat"):
+        remat_path_phase(k1)
+    if on("k1_split_mode"):
+        split_time = k1_split_mode_phase(cfg)
+        split_cfg = copy.deepcopy(cfg)
+        split_cfg.data.augment_impl = "pallas-split"
+        split_l, _, _ = train_path(
+            "split_path", split_cfg, 2, {k1: 1}, augment_impl="pallas-split",
+            main_path_img_per_s=main_img_s)
     if on("trace_probe"):
         trace_probe_phase()
     # last, in processes of their own (child_phases): mm_timing's
@@ -1596,12 +1857,21 @@ def main(argv=None):
                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                         library_ms=None)
         kernels = [
+            # launches, max_abs_err, ms, plain_ms and bound_ms: the main
+            # path's fused mode; the launches on resnext_path (the same
+            # mode) and in split mode (identity normalization, float32,
+            # the split_path), and split mode's error in raw 0-255 pixel
+            # units, in fields of their own
             dict(name="fused_crop_mirror_normalize", route="cuda",
                  source="resnet_tpu_torch/csrc/augment.cu",
                  replaces="resnet_tpu/ops/augment_pallas.py:105",
-                 launches=main_l[k1], max_abs_err=k1_worst, ms=k1_time["ms"],
+                 launches=main_l[k1], max_abs_err=k1_worst,
+                 ms=k1_time["ms"],
                  plain_ms=k1_time["plain_ms"], bound_ms=k1_time["bound_ms"],
-                 bound_by=k1_time["bound_by"], library_ms=None),
+                 bound_by=k1_time["bound_by"], library_ms=None,
+                 resnext_path_launches=resnext_l[k1],
+                 split_mode_launches=split_l[k1],
+                 split_mode_max_abs_err=split_time["max_abs_err"]),
             # ms, plain_ms and bound_ms of the next four: sums over the
             # launches of one ResNet-50 step at batch 128, bf16
             mm_kernel("matmul_with_stats", "matmul_stats.cu",

@@ -57,7 +57,7 @@ class DataConfig:
     std_rgb: tuple = (58.393, 57.12, 57.375)
     max_random_contrast: float = 0.0
     max_random_illumination: float = 0.0
-    pad: int = 4                      # CIFAR pad-and-crop (not ported)
+    pad: int = 4                      # CIFAR pad-and-crop
     fill_value: int = 0
     preprocess_threads: int = 4       # decode threads of the record loader
     prefetch_buffer: int = 2          # batches queued ahead, host and device
@@ -65,7 +65,8 @@ class DataConfig:
     shuffle: bool = True
     pipeline: str = "record"          # synthetic | memory | record
     # auto | pallas: the fused augmentation kernel (its plain version on a
-    # CPU tensor); xla: the plain PyTorch augmenter; pallas-split: not ported
+    # CPU tensor); xla: the plain PyTorch augmenter; pallas-split: the
+    # kernel crops, the photometric jitter runs after it as plain ops
     augment_impl: str = "auto"
 
 
@@ -161,7 +162,8 @@ class Config:
 # ---------------------------------------------------------------------------
 
 def cifar10_resnet18() -> Config:
-    """ResNet-18 on CIFAR-10 (not ported: the CIFAR stem)."""
+    """ResNet-18 on CIFAR-10: the CIFAR stem (3x3/1 conv, no pool) on the
+    ImageNet depth-18 table, batch 128, float32, the pad-4 crop."""
     cfg = Config()
     cfg.data = dataclasses.replace(
         cfg.data, num_classes=10, num_examples=50000,
@@ -191,7 +193,10 @@ def imagenet_resnet50() -> Config:
 
 
 def imagenet_resnext50() -> Config:
-    """ResNeXt-50 32x4d (not ported: grouped convs)."""
+    """ResNeXt-50 32x4d: the grouped 3x3s lowered two groups a
+    block-diagonal block (``grouped_dense``, ``grouped_merge=2``), batch
+    128, bf16, bn-ema, the s2d stem fed by the s2d augmenter, four SGD
+    steps per train-step call."""
     cfg = Config()
     cfg.model = dataclasses.replace(cfg.model, network="resnext", depth=50)
     cfg.train = dataclasses.replace(cfg.train, grouped_dense=True,
@@ -216,8 +221,8 @@ def imagenet_resnet101_bf16() -> Config:
 
 
 def imagenet_resnet152_dp() -> Config:
-    """ResNet-152 over 16 devices with remat (not ported: data parallel,
-    remat)."""
+    """ResNet-152 over 16 devices with remat (not ported: data
+    parallel)."""
     cfg = Config()
     cfg.model = dataclasses.replace(cfg.model, depth=152)
     cfg.train = dataclasses.replace(
@@ -240,28 +245,11 @@ PRESETS = {
 def require_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` if ``cfg`` selects something the port
     does not have yet; the message names the ``ROADMAP.md`` item."""
-    d, m, t = cfg.data, cfg.model, cfg.train
+    t = cfg.train
     missing = []
-    if m.version != 1:
-        missing.append(("v2 pre-activation units", 14))
-    if m.dataset != "imagenet":
-        missing.append(("the CIFAR stem and nets", 14))
-    if m.network != "resnet":
-        missing.append(("ResNeXt grouped convolutions", 14))
-    if t.remat or t.remat_policy != "none":
-        missing.append(("remat", 14))
-    if t.pool_grad != "sas":
-        missing.append(("the 'mask' max-pool backward", 14))
     if t.num_devices > 1:
         missing.append(("data parallel over more than one device "
                         "(dp_mode, dp_sync, sync_bn, dp_comm_dtype)", 15))
-    if d.max_rotate_angle > 0 or d.max_shear_ratio > 0:
-        if d.rotate_backend == "host":
-            missing.append(("the host rotate/shear warp", 11))
-        else:
-            missing.append(("the device rotate/shear warp", 14))
-    if d.augment_impl == "pallas-split":
-        missing.append(("augment_impl='pallas-split'", 14))
     if t.xla_opts:
         missing.append(("backend options in place of --xla-opts", 17))
     if missing:
@@ -329,7 +317,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas", "pallas-split", "xla"],
                    default=None,
                    help="auto/pallas: the fused CUDA augmentation kernel; "
-                        "xla: the plain PyTorch augmenter")
+                        "pallas-split: the kernel crops, the photometric "
+                        "jitter runs after it; xla: the plain PyTorch "
+                        "augmenter")
     # train
     p.add_argument("--batch-size", type=int, default=None, help="global batch")
     p.add_argument("--lr", type=float, default=None)

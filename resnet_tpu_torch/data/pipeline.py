@@ -17,8 +17,13 @@ output the canvas is 256x256, the reference's resize-256/crop-224.
 Checkpoint state: ``cursor_state(nbatch)`` gives (epoch, batch, record)
 as CONSUMED by the trainer, and resume seeks the deterministic epoch
 stream to that record, so a mid-epoch resume replays the identical
-remaining stream. The host rotate/shear warp (``rotate_backend="host"``)
-is not ported; ``config.require_ported`` refuses it.
+remaining stream.
+
+Host warp: with ``rotate_backend="host"`` and a nonzero
+``max_rotate_angle`` or ``max_shear_ratio``, train canvases are warped in
+the decode stage (``data/host_warp.py``), with per-batch parameters a
+pure function of (seed, epoch, batch), so a resume replays the same warp
+stream; the Solver then zeroes the device augmenter's angles.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from resnet_tpu_torch.config import DataConfig
+from resnet_tpu_torch.data import host_warp
 from resnet_tpu_torch.data.loader import DataIter
 
 
@@ -69,10 +75,6 @@ class RecordIter(DataIter):
 
     def __init__(self, cfg, train: bool):
         d, t = cfg.data, cfg.train
-        if train and (d.max_rotate_angle > 0 or d.max_shear_ratio > 0):
-            raise NotImplementedError(
-                "the host rotate/shear warp is not ported yet (ROADMAP.md "
-                "Queue 1 item 11)")
         recs = resolve_shards(d.data_dir, d.train_rec if train else d.val_rec)
         # an explicitly configured index file for a single-file rec wins
         # over the rec's own sibling .idx only when the user set it (name
@@ -103,6 +105,15 @@ class RecordIter(DataIter):
         self.loader = make_record_loader(
             recs, idxs, self.canvas_hw, threads=d.preprocess_threads,
             letterbox=train)
+        # the host rotate/shear warp, train only
+        self._warp = None
+        self._warp_pool = None
+        if (train and d.rotate_backend == "host"
+                and (d.max_rotate_angle > 0 or d.max_shear_ratio > 0)):
+            from concurrent.futures import ThreadPoolExecutor
+            self._warp = (d.max_rotate_angle, d.max_shear_ratio)
+            self._warp_pool = ThreadPoolExecutor(
+                max_workers=max(1, d.preprocess_threads))
         n = self.loader.num_records
         if train:
             self.steps_per_epoch = max(n // self.batch_size, 1)
@@ -164,7 +175,7 @@ class RecordIter(DataIter):
 
         def producer():
             try:
-                for _ in range(start_batch, self.steps_per_epoch):
+                for k in range(start_batch, self.steps_per_epoch):
                     if stop.is_set():
                         return
                     out = self._fill_batch()
@@ -174,6 +185,12 @@ class RecordIter(DataIter):
                         # drop the corrupt-shortened tail batch: a padded
                         # train batch would bias the gradients
                         break
+                    if self._warp is not None:
+                        angles, shears = host_warp.batch_params(
+                            self.seed, epoch, k, len(out[0]), *self._warp)
+                        out = (host_warp.warp_batch(out[0], angles, shears,
+                                                    self._warp_pool),
+                               out[1], out[2])
                     q.put((self._to_batch(*out),
                            self.loader.records_consumed))
             finally:

@@ -45,10 +45,6 @@ def get_model(cfg: Config,
     from ``generator``, by default one seeded with ``cfg.train.seed``."""
     m, t = cfg.model, cfg.train
     units, filters, bottleneck, cifar = model_spec(m, cfg.data.num_classes)
-    if m.version != 1 or m.network != "resnet" or cifar:
-        raise NotImplementedError(
-            "the port builds ImageNet ResNet v1 so far; v2, CIFAR and "
-            "ResNeXt are not ported yet")
     if t.bn_grouped and t.bn_subsample <= 1:
         raise ValueError(
             "--bn-grouped needs --bn-subsample > 1 (the number of "
@@ -70,14 +66,16 @@ def get_model(cfg: Config,
             "or --unit-chain (those compute/apply batch statistics); "
             "drop one of the flags")
     if t.unit_chain != "off" and (t.bn_subsample > 1
-                                  or t.bn_stat_stride > 1):
+                                  or t.bn_stat_stride > 1
+                                  or t.remat_policy == "conv"):
         # the chain dataflow computes full-batch statistics in its
-        # epilogues; ignoring these knobs would run something other than
-        # what the flags say
+        # epilogues and manages its own residuals; ignoring these knobs
+        # would run something other than what the flags say
         raise ValueError(
-            "--unit-chain does not compose with --bn-subsample > 1 or "
-            "--bn-stat-stride > 1 (the chain computes full-batch BN stats "
-            "in-kernel); drop one of the flags")
+            "--unit-chain does not compose with --bn-subsample > 1, "
+            "--bn-stat-stride > 1 or --remat-policy conv (the chain "
+            "computes full-batch BN stats in-kernel); drop one of the "
+            "flags")
     if generator is None:
         generator = torch.Generator().manual_seed(t.seed)
     return ResNet(units=units, filters=filters,
@@ -87,4 +85,10 @@ def get_model(cfg: Config,
                   bn_subsample=t.bn_subsample, bn_grouped=t.bn_grouped,
                   bn_stat_stride=t.bn_stat_stride, stem_s2d=t.stem_s2d,
                   fused=t.fused_convbn, unit_chain=t.unit_chain,
+                  version=m.version,
+                  cardinality=m.cardinality if m.network == "resnext" else 1,
+                  group_width=m.group_width, cifar_stem=cifar,
+                  grouped_dense=t.grouped_dense,
+                  grouped_merge=t.grouped_merge, remat=t.remat,
+                  remat_policy=t.remat_policy, pool_grad=t.pool_grad,
                   generator=generator)

@@ -1,4 +1,7 @@
-"""ResNet v1 in PyTorch, port of ``resnet_tpu/models/resnet.py``.
+"""The ResNet / ResNeXt family in PyTorch, port of
+``resnet_tpu/models/resnet.py``: v1 (post-activation) and v2
+(pre-activation) units, basic and bottleneck, ResNeXt's grouped 3x3 and its
+block-diagonal lowering, the ImageNet and CIFAR stems, and remat.
 
 Public boundary NHWC, as in the JAX package; inside, tensors are NCHW in
 ``channels_last`` memory. The dtype flow is the JAX model's, written out
@@ -10,21 +13,24 @@ weights OIHW, fc weight (out, in)), which is also MXNet's, so the weight
 bridge (``utils/export.py``) needs no transposes.
 
 ``fused`` and ``unit_chain`` switch the execution path of v1 bottleneck
-units in train mode (``models/fused.py``, ``models/chain.py``); the modules
-that own the parameters and running statistics stay the same under every
-switch.
-
-Not ported yet: v2 units, the CIFAR stem, ResNeXt grouped convs and remat.
+units with ``cardinality == 1`` in train mode (``models/fused.py``,
+``models/chain.py``); ``grouped_dense`` switches the lowering of the
+grouped 3x3, and ``remat``/``remat_policy`` what a unit keeps for its
+backward. The modules that own the parameters and running statistics stay
+the same under every switch.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from resnet_tpu_torch.ops.pool import stem_max_pool
 
@@ -61,13 +67,20 @@ def variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
 
 class Conv(nn.Module):
     """Bias-free 2-D convolution with an OIHW weight, computed in ``dtype``
-    (input and weight both cast, as flax ``nn.Conv(dtype=...)`` does)."""
+    (input and weight both cast, as flax ``nn.Conv(dtype=...)`` does).
+    ``groups > 1``: a grouped convolution over the (O, I/G, kh, kw) weight,
+    flax's ``feature_group_count``."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype=torch.float32):
+                 padding: int = 0, dtype=torch.float32, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        if cin % groups or cout % groups:
+            raise ValueError(f"{groups} groups do not divide {cin} -> {cout} "
+                             "channels")
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel, kernel))
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.groups = groups
 
     def reset_parameters(self, generator=None):
         _, cin, kh, kw = self.weight.shape
@@ -76,7 +89,51 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
+                        stride=self.stride, padding=self.padding,
+                        groups=self.groups)
+
+
+class GroupedConvDense(Conv):
+    """A grouped convolution lowered with ``merge`` groups fused per dense
+    block, port of ``_GroupedConvDense``.
+
+    The parameter is the grouped convolution's own (O, I/G, kh, kw) weight,
+    so checkpoints interchange with :class:`Conv`. Each forward builds from
+    it, in float32, the weight of a convolution with ``G/merge`` groups of
+    ``merge`` original groups each: block-diagonal within an outer group
+    (input slot ``n`` of outer group ``j`` reaches the outputs of inner
+    group ``m`` only where ``n == m``, zero elsewhere), then casts it to
+    the compute dtype. The zeros are structural: gradients reach only the
+    real parameter. ``merge=0`` or ``G`` is the fully dense lowering.
+    """
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 padding: int, groups: int, merge: int = 0,
+                 dtype=torch.float32):
+        super().__init__(cin, cout, kernel, stride, padding, dtype, groups)
+        self.merge = merge or groups
+        if groups % self.merge:
+            raise ValueError(f"merge {self.merge} does not divide {groups} "
+                             "groups")
+
+    def dense_weight(self) -> torch.Tensor:
+        """The (O, merge·I/G, kh, kw) weight of the merged convolution."""
+        f = self.merge
+        cout, cg, kh, kw = self.weight.shape
+        go, cog = self.groups // f, cout // self.groups
+        # k6[j, m, o, c, h, w]: output o of inner group m of outer group j
+        # (output channels run over (j, m, o), as the original groups do)
+        k6 = self.weight.float().reshape(go, f, cog, cg, kh, kw)
+        eye = torch.eye(f, dtype=torch.float32, device=k6.device)
+        dense = torch.einsum("jmochw,nm->jmonchw", k6, eye)
+        # the inputs of outer group j run over (n, c): original group
+        # j·merge + n, its channel c
+        return dense.reshape(cout, f * cg, kh, kw)
+
+    def forward(self, x):
+        return F.conv2d(x.to(self.dtype), self.dense_weight().to(self.dtype),
+                        stride=self.stride, padding=self.padding,
+                        groups=self.groups // self.merge)
 
 
 class Dense(nn.Module):
@@ -161,15 +218,25 @@ class BatchNorm(nn.Module):
     precedence (the registry refuses the pair).
 
     Eval mode normalizes with the running statistics in every mode.
+
+    ``use_scale=False`` (the reference's ``fix_gamma``): no scale
+    parameter at all, ``weight`` is None, as flax has no ``scale``.
+
+    Under remat (:func:`remat_unit`) a unit's forward runs twice; the
+    second run, the recomputation, refreshes nothing and reads the running
+    statistics the first run read (``remat_pass``).
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 2e-5, ema: bool = False,
                  ema_clamp: float = 1.0, subsample: int = 1,
                  grouped: bool = False, stat_stride: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_scale: bool = True):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(features))
+        if use_scale:
+            self.weight = nn.Parameter(torch.ones(features))
+        else:
+            self.register_parameter("weight", None)
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
@@ -177,8 +244,25 @@ class BatchNorm(nn.Module):
         self.ema, self.ema_clamp, self.dtype = ema, ema_clamp, dtype
         self.subsample, self.grouped = subsample, grouped
         self.stat_stride = stat_stride
+        self.remat_pass: Optional[RematPass] = None
+
+    def _scaled(self, inv):
+        return inv if self.weight is None else inv * self.weight
+
+    def _pre_step_stats(self):
+        """The running statistics as they were before this step's refresh:
+        a copy, or under remat the first run's copy."""
+        rp = self.remat_pass
+        if rp is not None and rp.replay:
+            return rp.stash[id(self)]
+        stats = self.running_mean.clone(), self.running_var.clone()
+        if rp is not None:
+            rp.stash[id(self)] = stats
+        return stats
 
     def _refresh(self, mean, var):
+        if self.remat_pass is not None and self.remat_pass.replay:
+            return
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -206,7 +290,7 @@ class BatchNorm(nn.Module):
         gmean = ss.mean(red)                           # (g, C)
         gvar = ((ss * ss).mean(red) - gmean * gmean).clamp_min(0.0)
         self._refresh(gmean.detach().mean(0), gvar.detach().mean(0))
-        inv = torch.rsqrt(gvar + self.eps) * self.weight
+        inv = self._scaled(torch.rsqrt(gvar + self.eps))
         out = (xs - gmean[:, None, :, None, None]) \
             * inv[:, None, :, None, None] + self.bias[:, None, None]
         return out.reshape(xf.shape).to(self.dtype)
@@ -224,9 +308,7 @@ class BatchNorm(nn.Module):
             bmean = bmean_g.detach()
             xs = xs.detach()
             bvar = ((xs * xs).mean(dims) - bmean * bmean).clamp_min(0.0)
-            # the running stats as they were before this step's refresh
-            mean = self.running_mean.clone()
-            var = self.running_var.clone()
+            mean, var = self._pre_step_stats()
             if self.ema_clamp > 0:
                 c2 = self.ema_clamp * self.ema_clamp
                 var = torch.minimum(torch.maximum(var, bvar / c2),
@@ -241,50 +323,145 @@ class BatchNorm(nn.Module):
             mean = xs.mean(dims)
             var = ((xs * xs).mean(dims) - mean * mean).clamp_min(0.0)
             self._refresh(mean.detach(), var.detach())
-        inv = torch.rsqrt(var + self.eps) * self.weight
+        inv = self._scaled(torch.rsqrt(var + self.eps))
         out = (xf - mean[:, None, None]) * inv[:, None, None] \
             + self.bias[:, None, None]
         return out.to(self.dtype)
 
 
-class ResidualUnit(nn.Module):
-    """v1 residual unit (ref:symbol/resnet.py residual_unit): conv-BN-ReLU
-    chains, a projection shortcut conv-BN when ``dim_match`` is False, ReLU
-    after the add. The stride sits on the bottleneck's 3x3.
+class RematPass:
+    """What the two runs of a rematerialized unit share: the running
+    statistics each of its BatchNorms read in the first run (``stash``,
+    by module id), and whether the run now going is the recomputation."""
 
-    In train mode a bottleneck unit takes the chain dataflow when
-    ``unit_chain`` is ``"xla"`` (separate PyTorch ops) or ``"pallas"`` (the
-    hand-written CUDA kernels), else the fused conv+BN path when ``fused``;
-    eval and basic units always take the standard path."""
+    def __init__(self):
+        self.stash = {}
+        self.replay = False
+
+
+# the ops whose outputs remat_policy="conv" keeps: the convolutions'
+# outputs and the BatchNorm statistics' per-channel means
+_CONV_POLICY_SAVES = (torch.ops.aten.convolution.default,
+                      torch.ops.aten.mean.dim)
+
+
+def _conv_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_POLICY_SAVES
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_unit(unit: nn.Module, x: torch.Tensor,
+               selective: bool = False) -> torch.Tensor:
+    """Run ``unit`` on ``x`` under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward instead of kept (the
+    reference's memonger ``mirror_stage``). ``selective``: keep the
+    convolutions' outputs and the BatchNorm statistics and recompute only
+    the normalize/ReLU chain around them (``remat_policy="conv"``).
+
+    The recomputation refreshes no running statistic and reads the ones
+    the first run read, so a step with remat leaves the model as one
+    without does (JAX's functional ``nn.remat`` gets this for free)."""
+    rp = RematPass()
+    bns = [m for m in unit.modules() if isinstance(m, BatchNorm)]
+
+    def run(inp):
+        for bn in bns:
+            bn.remat_pass = rp
+        try:
+            return unit(inp)
+        finally:
+            for bn in bns:
+                bn.remat_pass = None
+            rp.replay = True
+
+    kw = {}
+    if selective:
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _conv_policy)
+    return checkpoint(run, x, use_reentrant=False, **kw)
+
+
+class ResidualUnit(nn.Module):
+    """One residual unit (ref:symbol/resnet.py residual_unit, resnext.py).
+
+    v1: conv-BN-ReLU chains, a projection shortcut conv-BN when
+    ``dim_match`` is False, ReLU after the add. v2: pre-activation
+    BN-ReLU-conv chains, the projection shortcut taken from the first
+    pre-activation without a BN, a plain add. The stride sits on the
+    bottleneck's 3x3. ``cardinality > 1`` makes that 3x3 a grouped conv
+    (ResNeXt) of ``mid`` channels, lowered block-diagonally with
+    ``grouped_dense`` (``GroupedConvDense``, ``grouped_merge`` groups a
+    block).
+
+    In train mode a v1 bottleneck unit with ``cardinality == 1`` takes the
+    chain dataflow when ``unit_chain`` is ``"xla"`` (separate PyTorch ops)
+    or ``"pallas"`` (the hand-written CUDA kernels), else the fused
+    conv+BN path when ``fused``; every other unit, and eval, takes the
+    standard path."""
 
     def __init__(self, cin: int, filters: int, stride: int, dim_match: bool,
                  bottleneck: bool, bn_kw: dict, dtype=torch.float32,
-                 fused: bool = False, unit_chain: str = "off"):
+                 fused: bool = False, unit_chain: str = "off",
+                 version: int = 1, cardinality: int = 1,
+                 mid: Optional[int] = None, grouped_dense: bool = False,
+                 grouped_merge: int = 0):
         super().__init__()
         if unit_chain not in ("off", "xla", "pallas"):
             raise ValueError(f"unit_chain must be off|xla|pallas, got "
                              f"{unit_chain!r}")
-        mid = filters // 4 if bottleneck else filters
+        if version not in (1, 2):
+            raise ValueError(f"version must be 1 or 2, got {version}")
+        if mid is None:
+            mid = filters // 4 if bottleneck else filters
         self.dim_match, self.bottleneck = dim_match, bottleneck
+        self.version, self.cardinality = version, cardinality
         self.fused, self.unit_chain = fused, unit_chain
+        bn = partial(BatchNorm, **bn_kw)
+        conv = partial(Conv, dtype=dtype)
+
+        def grouped3x3():
+            """The bottleneck's 3x3: grouped conv, or its block-diagonal
+            lowering; the same ``conv2`` parameter either way."""
+            if cardinality > 1 and grouped_dense:
+                return GroupedConvDense(mid, mid, 3, stride, 1, cardinality,
+                                        grouped_merge, dtype=dtype)
+            return conv(mid, mid, 3, stride, 1, groups=cardinality)
+
+        if version == 2:
+            self.bn1 = bn(cin)
+            if not dim_match:
+                self.sc = conv(cin, filters, 1, stride)
+            if bottleneck:
+                self.conv1 = conv(cin, mid, 1)
+                self.bn2 = bn(mid)
+                self.conv2 = grouped3x3()
+                self.bn3 = bn(mid)
+                self.conv3 = conv(mid, filters, 1)
+            else:
+                self.conv1 = conv(cin, mid, 3, stride, 1)
+                self.bn2 = bn(mid)
+                self.conv2 = conv(mid, filters, 3, 1, 1)
+            return
         if not dim_match:
-            self.sc = Conv(cin, filters, 1, stride, dtype=dtype)
-            self.sc_bn = BatchNorm(filters, **bn_kw)
+            self.sc = conv(cin, filters, 1, stride)
+            self.sc_bn = bn(filters)
         if bottleneck:
-            self.conv1 = Conv(cin, mid, 1, dtype=dtype)
-            self.bn1 = BatchNorm(mid, **bn_kw)
-            self.conv2 = Conv(mid, mid, 3, stride, 1, dtype=dtype)
-            self.bn2 = BatchNorm(mid, **bn_kw)
-            self.conv3 = Conv(mid, filters, 1, dtype=dtype)
-            self.bn3 = BatchNorm(filters, **bn_kw)
+            self.conv1 = conv(cin, mid, 1)
+            self.bn1 = bn(mid)
+            self.conv2 = grouped3x3()
+            self.bn2 = bn(mid)
+            self.conv3 = conv(mid, filters, 1)
+            self.bn3 = bn(filters)
         else:
-            self.conv1 = Conv(cin, mid, 3, stride, 1, dtype=dtype)
-            self.bn1 = BatchNorm(mid, **bn_kw)
-            self.conv2 = Conv(mid, filters, 3, 1, 1, dtype=dtype)
-            self.bn2 = BatchNorm(filters, **bn_kw)
+            self.conv1 = conv(cin, mid, 3, stride, 1)
+            self.bn1 = bn(mid)
+            self.conv2 = conv(mid, filters, 3, 1, 1)
+            self.bn2 = bn(filters)
 
     def forward(self, x):
-        if self.bottleneck and self.training:
+        if self.version == 2:
+            return self._forward_v2(x)
+        if self.bottleneck and self.training and self.cardinality == 1:
             if self.unit_chain != "off":
                 from resnet_tpu_torch.models.chain import chain_unit_v1
                 return chain_unit_v1(self, x, backend=self.unit_chain)
@@ -298,6 +475,18 @@ class ResidualUnit(nn.Module):
         else:
             y = self.bn2(self.conv2(y))
         return F.relu(y + shortcut)
+
+    def _forward_v2(self, x):
+        """Pre-activation (He et al. 2016, Identity Mappings)."""
+        pre = F.relu(self.bn1(x))
+        shortcut = x if self.dim_match else self.sc(pre)
+        y = F.relu(self.bn2(self.conv1(pre)))
+        if self.bottleneck:
+            y = F.relu(self.bn3(self.conv2(y)))
+            y = self.conv3(y)
+        else:
+            y = self.conv2(y)
+        return y + shortcut
 
     def _forward_fused(self, x):
         """Train-mode bottleneck with the BN statistics of the three 1x1
@@ -315,15 +504,24 @@ class ResidualUnit(nn.Module):
 
 
 class ResNet(nn.Module):
-    """v1 ResNet with the ImageNet stem (ref:symbol/resnet.py ``resnet``):
-    7x7/2 conv (or its space-to-depth form) - BN - ReLU - 3x3/2 max-pool,
-    the residual stages (stride 2 at the entry of every stage but the
-    first, a projection shortcut on every stage's first unit), global
-    mean-pool and a float32 FC head.
+    """The network (ref:symbol/resnet.py ``resnet``): stem, the residual
+    stages (stride 2 at the entry of every stage but the first, a
+    projection shortcut on every stage's first unit), BN-ReLU for v2,
+    global mean-pool and a float32 FC head.
+
+    Stems: ImageNet, 7x7/2 conv (or its space-to-depth form) - BN - ReLU -
+    3x3/2 max-pool (``pool_grad`` picks its backward); CIFAR
+    (``cifar_stem``), 3x3/1 conv, then BN-ReLU for v1 only, no pool. v2
+    puts a fixed-gamma BN (``bn_data``) on the raw input. ResNeXt
+    (``cardinality > 1``, bottleneck only) widens each unit's middle to
+    ``max(filters·C·group_width // 256, C)``.
+
+    ``remat``: every residual unit runs under ``remat_unit`` in training;
+    else ``remat_policy="conv"``, the selective form.
 
     Input is NHWC: (N, H, W, 3) images, or (N, H/2, W/2, 12) blocks from
-    the s2d augmenter, which need ``stem_s2d``. Units are registered as
-    ``stage{S}_unit{U}``, the reference's names.
+    the s2d augmenter, which need ``stem_s2d`` and a v1 ImageNet net.
+    Units are registered as ``stage{S}_unit{U}``, the reference's names.
     """
 
     def __init__(self, units: Sequence[int], filters: Sequence[int],
@@ -333,21 +531,44 @@ class ResNet(nn.Module):
                  bn_subsample: int = 1, bn_grouped: bool = False,
                  bn_stat_stride: int = 1,
                  stem_s2d: bool = False, fused: bool = False,
-                 unit_chain: str = "off",
+                 unit_chain: str = "off", version: int = 1,
+                 cardinality: int = 1, group_width: int = 4,
+                 cifar_stem: bool = False, grouped_dense: bool = False,
+                 grouped_merge: int = 0, remat: bool = False,
+                 remat_policy: str = "none", pool_grad: str = "sas",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if remat_policy not in ("none", "conv"):
+            raise ValueError(f"remat_policy must be none|conv, got "
+                             f"{remat_policy!r}")
+        if pool_grad not in ("sas", "mask"):
+            raise ValueError(f"unknown pool grad_mode: {pool_grad!r}")
         self.dtype, self.stem_s2d = dtype, stem_s2d
+        self.version, self.cifar_stem = version, cifar_stem
+        self.remat, self.remat_policy = remat, remat_policy
+        self.pool_grad = pool_grad
         bn_kw = dict(momentum=bn_mom, eps=bn_eps, ema=bn_ema,
                      ema_clamp=bn_ema_clamp, subsample=bn_subsample,
                      grouped=bn_grouped, stat_stride=bn_stat_stride,
                      dtype=dtype)
-        if stem_s2d:
+        if version == 2:
+            self.bn_data = BatchNorm(3, use_scale=False, **bn_kw)
+        if cifar_stem:
+            self.conv0 = Conv(3, filters[0], 3, 1, 1, dtype=dtype)
+        elif stem_s2d:
             self.conv0 = StemConvS2D(3, filters[0], dtype=dtype)
         else:
             self.conv0 = Conv(3, filters[0], 7, 2, 3, dtype=dtype)
-        self.bn0 = BatchNorm(filters[0], **bn_kw)
+        if not (cifar_stem and version == 2):
+            self.bn0 = BatchNorm(filters[0], **bn_kw)
         cin = filters[0]
+        cardinality = cardinality if bottleneck else 1
         for stage, (n_units, n_filter) in enumerate(zip(units, filters[1:])):
+            mid = None
+            if cardinality > 1:
+                # ResNeXt width rule (ref:symbol/resnext.py)
+                mid = max(n_filter * cardinality * group_width // 256,
+                          cardinality)
             for unit in range(n_units):
                 first = unit == 0
                 stride = 2 if (first and stage > 0) else 1
@@ -355,9 +576,14 @@ class ResNet(nn.Module):
                     f"stage{stage + 1}_unit{unit + 1}",
                     ResidualUnit(cin, n_filter, stride, dim_match=not first,
                                  bottleneck=bottleneck, bn_kw=bn_kw,
-                                 dtype=dtype, fused=fused,
-                                 unit_chain=unit_chain))
+                                 dtype=dtype, fused=fused and version == 1,
+                                 unit_chain=unit_chain, version=version,
+                                 cardinality=cardinality, mid=mid,
+                                 grouped_dense=grouped_dense,
+                                 grouped_merge=grouped_merge))
                 cin = n_filter
+        if version == 2:
+            self.bn_final = BatchNorm(cin, **bn_kw)
         self.fc = Dense(cin, num_classes)
         self.reset_parameters(generator)
 
@@ -374,16 +600,32 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         pre_blocked = x.shape[-1] == 12
-        if pre_blocked and not self.stem_s2d:
+        if pre_blocked and (not self.stem_s2d or self.cifar_stem
+                            or self.version != 1):
             raise ValueError(
-                "pre-blocked (12-channel) stem input needs stem_s2d")
+                "pre-blocked (12-channel) stem input needs stem_s2d and a "
+                "v1 net with the ImageNet stem")
         x = x.permute(0, 3, 1, 2)        # NHWC -> NCHW view, channels_last
-        if self.stem_s2d:
-            x = self.conv0(x, pre_blocked=pre_blocked)
-        else:
+        if self.version == 2:
+            x = self.bn_data(x)
+        if self.cifar_stem:
             x = self.conv0(x)
-        x = stem_max_pool(F.relu(self.bn0(x)))
+            if self.version == 1:
+                x = F.relu(self.bn0(x))
+        else:
+            if self.stem_s2d:
+                x = self.conv0(x, pre_blocked=pre_blocked)
+            else:
+                x = self.conv0(x)
+            x = stem_max_pool(F.relu(self.bn0(x)), self.pool_grad)
+        remat = ((self.remat or self.remat_policy == "conv")
+                 and self.training and torch.is_grad_enabled())
         for unit in self.units():
-            x = unit(x)
+            if remat:
+                x = remat_unit(unit, x, selective=not self.remat)
+            else:
+                x = unit(x)
+        if self.version == 2:
+            x = F.relu(self.bn_final(x))
         x = x.mean(dim=(2, 3))           # global mean-pool, compute dtype
         return self.fc(x)                # float32 head

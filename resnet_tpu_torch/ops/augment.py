@@ -1,10 +1,12 @@
-"""On-device ImageNet augmentation in plain PyTorch.
+"""On-device augmentation in plain PyTorch.
 
 Port of ``resnet_tpu/ops/augment.py``: MXNet random-resized-crop box
 sampling, bilinear crop-resize with the mirror folded into the horizontal
-weights, additive HSL jitter, and the mean/std normalize. These functions
-are the plain version the hand-written augmentation kernel
-(``ops/augment_fused.py``, ``csrc/augment.cu``) is held against.
+weights, additive HSL jitter, and the mean/std normalize, which are the
+plain version the hand-written augmentation kernel
+(``ops/augment_fused.py``, ``csrc/augment.cu``) is held against; the
+rotate/shear warp, a bilinear gather the kernel does not do; and the
+CIFAR pad-and-crop.
 
 Randomness: every sampler takes an explicit ``torch.Generator``, and the
 functions that apply random values take the values themselves, so tests
@@ -14,6 +16,7 @@ package.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -311,3 +314,99 @@ def eval_center_crop(canvas_u8: torch.Tensor, cfg: DataConfig,
     x0 = (wc - ow) // 2
     images = canvas_u8[:, y0:y0 + oh, x0:x0 + ow, :]
     return normalize(images, cfg.mean_rgb, cfg.std_rgb, dtype)
+
+
+def sample_rotate(generator: torch.Generator, cfg: DataConfig, n: int,
+                  device=None):
+    """Per-image warp values: angles in radians, uniform over
+    ``±max_rotate_angle`` degrees, and shears uniform over
+    ``±max_shear_ratio``; (n,) float32 each."""
+    u = torch.rand((2, n), generator=generator, device=device)
+    a, s = float(cfg.max_rotate_angle), float(cfg.max_shear_ratio)
+    return (-a + u[0] * (2 * a)) * (math.pi / 180.0), -s + u[1] * (2 * s)
+
+
+def rotate_images(images: torch.Tensor, angles: torch.Tensor,
+                  shears: torch.Tensor) -> torch.Tensor:
+    """Per-image affine warp about the image centre: rotation by ``angles``
+    (radians) composed with a horizontal shear by ``shears`` (ref:
+    max_rotate_angle / max_shear_ratio, one warpAffine in MXNet's
+    augmenter). One batched bilinear gather over (N, H, W, C) float32,
+    out-of-bounds taps zero (warpAffine's constant border); the same
+    expressions, in the same order, as the JAX package's."""
+    n, h, w, _ = images.shape
+    dev = images.device
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    cos = torch.cos(angles.float())[:, None, None]
+    sin = torch.sin(angles.float())[:, None, None]
+    # inverse map dst -> src: undo the shear [[1, s], [0, 1]], then the
+    # rotation, both about the centre
+    ux = (xx - cx)[None] - shears.float()[:, None, None] * (yy - cy)[None]
+    uy = (yy - cy)[None]
+    sy = cy + uy * cos - ux * sin
+    sx = cx + uy * sin + ux * cos
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    wy = (sy - y0)[..., None]
+    wx = (sx - x0)[..., None]
+    img = torch.arange(n, device=dev)[:, None, None]
+    src = images.float()
+
+    def corner(yi, xi):
+        valid = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w))[..., None]
+        g = src[img, yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long()]
+        return torch.where(valid, g, torch.zeros((), device=dev))
+
+    return (corner(y0, x0) * (1 - wy) * (1 - wx)
+            + corner(y0, x0 + 1) * (1 - wy) * wx
+            + corner(y0 + 1, x0) * wy * (1 - wx)
+            + corner(y0 + 1, x0 + 1) * wy * wx)
+
+
+def sample_cifar_rows(generator: torch.Generator, cfg: DataConfig, n: int,
+                      device=None) -> torch.Tensor:
+    """(n, 5) float32 rows of ``augment_cifar``'s values: crop offsets
+    uniform over ``[0, 2·pad]``, the mirror with p=0.5 (when
+    ``rand_mirror``), contrast ``alpha`` and illumination ``beta`` uniform
+    over their ranges (1 and 0 when off)."""
+    pad = int(cfg.pad)
+    off = torch.randint(0, 2 * pad + 1, (2, n), generator=generator,
+                        device=device).float()
+    u = torch.rand((3, n), generator=generator, device=device)
+    flip = (u[0] < 0.5).float() if cfg.rand_mirror else torch.zeros_like(u[0])
+    c, il = cfg.max_random_contrast, cfg.max_random_illumination
+    alpha = 1.0 - c + u[1] * (2 * c)
+    beta = -il + u[2] * (2 * il)
+    return torch.stack([off[0], off[1], flip, alpha, beta], dim=1)
+
+
+def augment_cifar(images_u8: torch.Tensor, generator: Optional[torch.Generator],
+                  cfg: DataConfig, dtype=torch.float32,
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N,H,W,3) uint8 -> augmented, normalized (N,H,W,3) ``dtype``: pad
+    by ``cfg.pad`` with ``cfg.fill_value``, crop
+    H x W at (dy, dx), mirror, then ``finish_normalize`` with the contrast
+    and illumination jitters when configured. The per-image values come
+    from ``rows`` ((N, 5): dy, dx, flip, alpha, beta) or are drawn from
+    ``generator``."""
+    n, h, w, _ = images_u8.shape
+    dev = images_u8.device
+    pad = int(cfg.pad)
+    if rows is None:
+        rows = sample_cifar_rows(generator, cfg, n, device=dev)
+    dy, dx, flip, alpha, beta = rows.unbind(1)
+    padded = torch.nn.functional.pad(
+        images_u8, (0, 0, pad, pad, pad, pad), value=int(cfg.fill_value))
+    ys = dy.long()[:, None] + torch.arange(h, device=dev)
+    cols = torch.arange(w, device=dev)
+    xs = dx.long()[:, None] + torch.where(flip[:, None] > 0.5,
+                                          w - 1 - cols, cols)
+    img = torch.arange(n, device=dev)[:, None, None]
+    crop = padded[img, ys[:, :, None], xs[:, None, :]]
+    return finish_normalize(
+        crop, cfg.mean_rgb, cfg.std_rgb, dtype,
+        alpha=alpha if cfg.max_random_contrast > 0 else None,
+        beta=beta if cfg.max_random_illumination > 0 else None)

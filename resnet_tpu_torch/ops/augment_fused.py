@@ -1,5 +1,5 @@
 """The fused augmentation kernel's wrapper, its plain version, and the
-ImageNet train-time augmenter built on it.
+train-time augmenters built on it.
 
 Port of ``resnet_tpu/ops/augment_pallas.py``. The kernel
 (``csrc/augment.cu``) takes a uint8 NHWC canvas and one float32 row of 12
@@ -7,6 +7,13 @@ per-image values, ``y0, x0, ch, cw, flip, vh, vw, dh, ds, dl, alpha,
 beta``, and emits the normalized crop. Randomness is drawn outside it,
 from an explicit ``torch.Generator``, so a test can hand the kernel the
 values the JAX samplers drew.
+
+Two variants route around the fused form by configuration, as in the JAX
+package: the rotate/shear warp (the kernel reads a uint8 canvas, the warp
+makes a float32 one, which the plain version crops), and
+``augment_impl="pallas-split"`` (the kernel crops with identity
+normalization into float32, and the photometric jitter and normalize run
+as plain ops after it).
 """
 
 from __future__ import annotations
@@ -18,9 +25,10 @@ import torch
 
 from resnet_tpu_torch.config import DTYPES, Config, DataConfig
 from resnet_tpu_torch.ops.augment import (_rgb_to_hsl_adjust,
+                                          augment_cifar,
                                           crop_resize_bilinear,
-                                          finish_normalize,
-                                          sample_boxes_canvas)
+                                          finish_normalize, rotate_images,
+                                          sample_boxes_canvas, sample_rotate)
 
 ROW_LEN = 12
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -105,6 +113,34 @@ def _check_args(canvas_u8: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"s2d augmentation needs even output, got {out_hw}")
 
 
+def _photometric_normalize(x: torch.Tensor, rows: torch.Tensor, mean_rgb,
+                          std_rgb, dtype, hsl: bool, contrast: bool,
+                          illum: bool) -> torch.Tensor:
+    """The kernel's per-pixel steps on a float32 crop (N, H, W, 3) or its
+    s2d blocks (N, H/2, W/2, 12), which run on a (..., 4, 3) view: HSL
+    jitter, then the normalize with contrast and illumination, and the
+    cast, with the values of the (N, 12) rows."""
+    dh, ds, dl, alpha, beta = rows[:, 7:].unbind(1)
+    shape = x.shape
+    x = x.reshape(shape[:-1] + (-1, 3))
+    if hsl:
+        x = _rgb_to_hsl_adjust(x, dh, ds, dl)
+    x = finish_normalize(x, mean_rgb, std_rgb, dtype,
+                         alpha=alpha if contrast else None,
+                         beta=beta if illum else None)
+    return x.reshape(shape)
+
+
+def _crop_normalize_plain(canvas: torch.Tensor, rows: torch.Tensor,
+                          out_hw, mean_rgb, std_rgb, dtype, s2d, hsl,
+                          contrast, illum) -> torch.Tensor:
+    y0, x0, ch, cw, flip, vh, vw = rows[:, :7].unbind(1)
+    x = crop_resize_bilinear(canvas, (y0, x0, ch, cw), out_hw,
+                             flip=flip > 0.5, valid_hw=(vh, vw), s2d=s2d)
+    return _photometric_normalize(x, rows, mean_rgb, std_rgb, dtype, hsl,
+                                 contrast, illum)
+
+
 def fused_crop_mirror_normalize_reference(
         canvas_u8: torch.Tensor, rows: torch.Tensor,
         out_hw: Tuple[int, int], mean_rgb: Sequence[float],
@@ -116,17 +152,8 @@ def fused_crop_mirror_normalize_reference(
     driven by the same (N, 12) rows. With ``s2d`` the per-pixel steps run
     on a (..., 4, 3) view of the blocked crop."""
     _check_args(canvas_u8, rows, out_hw, dtype, s2d)
-    y0, x0, ch, cw, flip, vh, vw, dh, ds, dl, alpha, beta = rows.unbind(1)
-    x = crop_resize_bilinear(canvas_u8, (y0, x0, ch, cw), out_hw,
-                             flip=flip > 0.5, valid_hw=(vh, vw), s2d=s2d)
-    shape = x.shape
-    x = x.reshape(shape[:-1] + (-1, 3))
-    if hsl:
-        x = _rgb_to_hsl_adjust(x, dh, ds, dl)
-    x = finish_normalize(x, mean_rgb, std_rgb, dtype,
-                         alpha=alpha if contrast else None,
-                         beta=beta if illum else None)
-    return x.reshape(shape)
+    return _crop_normalize_plain(canvas_u8, rows, out_hw, mean_rgb, std_rgb,
+                                 dtype, s2d, hsl, contrast, illum)
 
 
 def fused_crop_mirror_normalize(
@@ -231,22 +258,31 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
                            dims: Optional[torch.Tensor] = None,
                            s2d: bool = False,
                            rows: Optional[torch.Tensor] = None,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False,
+                           split: bool = False,
+                           warp: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                           ) -> torch.Tensor:
     """Train-time ImageNet augmentation through the fused kernel: MXNet
     random-resized-crop boxes (full-image domain when ``dims`` gives the
     original sizes), mirror with p=0.5, HSL/contrast/illumination jitter,
     normalize and cast. The drop-in for ``augment_imagenet_pallas``.
 
     The per-image values are drawn from ``generator`` in the order boxes,
-    mirror, photometrics, unless ``rows`` (N, 12) supplies them.
+    mirror, photometrics, unless ``rows`` (N, 12) supplies them; then,
+    when ``max_rotate_angle`` or ``max_shear_ratio`` is set, the warp's
+    angles and shears, unless ``warp`` supplies them.
     ``plain=True`` applies them with the kernel's plain PyTorch version on
-    every device (``augment_impl="xla"``).
+    every device (``augment_impl="xla"``). The warp, by configuration,
+    always does: it makes a float32 canvas, and the kernel reads uint8.
+    ``split=True`` (``augment_impl="pallas-split"``): the kernel crops
+    with identity normalization into float32 and the photometric steps run
+    after it as plain ops; without a photometric jitter this is the fused
+    launch.
     """
-    if cfg.max_rotate_angle > 0 or cfg.max_shear_ratio > 0:
-        raise NotImplementedError(
-            "the rotate/shear warp is not ported yet")
     n, hc, wc, _ = canvas_u8.shape
     dev = canvas_u8.device
+    rotate = cfg.max_rotate_angle > 0 or cfg.max_shear_ratio > 0
     if rows is None:
         boxes = sample_boxes_canvas(generator, cfg, n, hc, wc, out_hw, dims,
                                     device=dev)
@@ -255,28 +291,54 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
         valid = (dims[:, 2], dims[:, 3]) if dims is not None else None
         ph = sample_photometric(generator, cfg, n, device=dev)
         rows = augment_rows(boxes, flip, valid, ph, n, (hc, wc), device=dev)
+    hsl = bool(cfg.random_h or cfg.random_s or cfg.random_l)
+    contrast = cfg.max_random_contrast > 0
+    illum = cfg.max_random_illumination > 0
+    norm = (cfg.mean_rgb, cfg.std_rgb, dtype)
+    if rotate:
+        if warp is None:
+            warp = sample_rotate(generator, cfg, n, device=dev)
+        return _crop_normalize_plain(rotate_images(canvas_u8, *warp), rows,
+                                     out_hw, *norm, s2d, hsl, contrast,
+                                     illum)
+    if split and not plain and (hsl or contrast or illum):
+        x = fused_crop_mirror_normalize(canvas_u8, rows, out_hw,
+                                        (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                                        torch.float32, s2d=s2d)
+        return _photometric_normalize(x, rows, *norm, hsl, contrast, illum)
     apply = (fused_crop_mirror_normalize_reference if plain
              else fused_crop_mirror_normalize)
-    return apply(
-        canvas_u8, rows, out_hw, cfg.mean_rgb, cfg.std_rgb, dtype, s2d=s2d,
-        hsl=bool(cfg.random_h or cfg.random_s or cfg.random_l),
-        contrast=cfg.max_random_contrast > 0,
-        illum=cfg.max_random_illumination > 0)
+    return apply(canvas_u8, rows, out_hw, *norm, s2d=s2d, hsl=hsl,
+                 contrast=contrast, illum=illum)
 
 
 def make_augment_fn(cfg: Config) -> Callable:
-    """The train step's augmenter for ``cfg``: output ``image_shape[:2]``
-    in the compute dtype, in the s2d block layout when ``aug_s2d`` and
-    ``stem_s2d`` are both set; through the kernel unless
-    ``augment_impl="xla"`` selects the plain version. Returns
+    """The train step's augmenter for ``cfg``, as the JAX Solver picks it:
+    ``augment_cifar`` for CIFAR-10; else ``augment_imagenet_fused`` with
+    output ``image_shape[:2]`` in the compute dtype, in the s2d block
+    layout when ``aug_s2d``, through the kernel unless
+    ``augment_impl="xla"`` selects the plain version
+    (``"pallas-split"``: the split photometric form). Returns
     ``f(canvas_u8, generator, dims=None, rows=None)``."""
     dtype = DTYPES[cfg.train.dtype]
-    s2d = cfg.train.aug_s2d and cfg.train.stem_s2d
-    out_hw = tuple(cfg.data.image_shape[:2])
-    plain = cfg.data.augment_impl == "xla"
+    d = cfg.data
+    if cfg.model.dataset == "cifar10":
+        def cifar_fn(images_u8, generator, dims=None, rows=None):
+            return augment_cifar(images_u8, generator, d, dtype, rows=rows)
+        return cifar_fn
+    out_hw = tuple(d.image_shape[:2])
+    s2d = cfg.train.aug_s2d
+    if s2d and (not cfg.train.stem_s2d or cfg.model.version != 1
+                or out_hw[0] % 2 or out_hw[1] % 2):
+        raise ValueError(
+            "--aug-s2d (augmenter emits space-to-depth blocks) needs "
+            "--stem-s2d, a v1 network, the ImageNet stem and an even "
+            "output size")
+    plain = d.augment_impl == "xla"
+    split = d.augment_impl == "pallas-split"
 
     def augment_fn(canvas_u8, generator, dims=None, rows=None):
-        return augment_imagenet_fused(canvas_u8, generator, cfg.data, out_hw,
+        return augment_imagenet_fused(canvas_u8, generator, d, out_hw,
                                       dtype, dims=dims, s2d=s2d, rows=rows,
-                                      plain=plain)
+                                      plain=plain, split=split)
     return augment_fn

@@ -17,6 +17,7 @@ of the update stays on throughout, as in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import glob
 import os
@@ -50,17 +51,34 @@ _SUM_KEYS = ("top1_sum", "top5_sum", "loss_sum", "count")
 
 
 def _eval_fn(cfg: Config):
-    """Validation preprocessing: centre crop of a larger canvas, then
-    normalize, in the compute dtype."""
+    """Validation preprocessing in the compute dtype: for CIFAR-10 the
+    normalize; else a centre crop of a larger canvas, then the
+    normalize."""
     d = cfg.data
     out_hw = tuple(d.image_shape[:2])
     dtype = DTYPES[cfg.train.dtype]
+    cifar = cfg.model.dataset == "cifar10"
 
     def fn(images):
-        if tuple(images.shape[1:3]) != out_hw:
+        if not cifar and tuple(images.shape[1:3]) != out_hw:
             return eval_center_crop(images, d, out_hw, dtype)
         return normalize(images, d.mean_rgb, d.std_rgb, dtype)
     return fn
+
+
+def device_augment_config(cfg: Config) -> Config:
+    """``cfg`` as the device augmenter must see it: where the record
+    pipeline already warped the canvases on the host
+    (``rotate_backend="host"``, ``data/host_warp.py``), its angles and
+    shears are zeroed so that the device does not warp them twice. Other
+    pipelines have no host decode stage and keep the device warp."""
+    d = cfg.data
+    if (cfg.model.dataset != "cifar10" and d.pipeline == "record"
+            and d.rotate_backend == "host"
+            and (d.max_rotate_angle > 0 or d.max_shear_ratio > 0)):
+        return cfg.replace(data=dataclasses.replace(
+            d, max_rotate_angle=0.0, max_shear_ratio=0.0))
+    return cfg
 
 
 def _pull(window: List[Dict[str, torch.Tensor]]) -> List[Dict[str, float]]:
@@ -101,7 +119,7 @@ class Solver:
         self._bn_ema_switch = None
         self._bn_ema_pending = False
         self._spd = max(1, t.steps_per_dispatch)
-        aug_fn = make_augment_fn(cfg)
+        aug_fn = make_augment_fn(device_augment_config(cfg))
         self._mk_step = lambda k: make_train_step(
             t.label_smooth, augment_fn=aug_fn, steps_per_dispatch=k)
         self.train_step = self._mk_step(self._spd)

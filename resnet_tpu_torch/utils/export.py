@@ -35,7 +35,9 @@ def _tensors(model: torch.nn.Module):
             yield f"{prefix}_weight", False, mod.weight
         elif isinstance(mod, BatchNorm):
             for attr, (suffix, aux) in _BN_NAMES.items():
-                yield f"{prefix}_{suffix}", aux, getattr(mod, attr)
+                # a fixed-gamma BN (v2's bn_data) has no scale to name
+                if getattr(mod, attr) is not None:
+                    yield f"{prefix}_{suffix}", aux, getattr(mod, attr)
 
 
 def _model(state) -> torch.nn.Module:
@@ -57,8 +59,9 @@ def export_mxnet_params(state) -> Tuple[Dict[str, np.ndarray],
 def load_mxnet_params(state, args: Dict[str, np.ndarray],
                       auxs: Dict[str, np.ndarray]) -> None:
     """Fill a train state's (or a bare model's) parameters and BN running
-    stats from MXNet-named dicts, in place. Every name must be present
-    with the model's shape."""
+    stats from MXNet-named dicts, in place. Every name of the model must
+    be present with the model's shape; a name the model lacks (an MXNet v2
+    file's ``bn_data_gamma``) is ignored, as the JAX package does."""
     with torch.no_grad():
         for name, aux, t in _tensors(_model(state)):
             table = auxs if aux else args

@@ -1,7 +1,8 @@
 """The port's entry point, ``python -m resnet_tpu_torch.train_resnet``:
 pack a tree with the port's ``im2rec``, train one short epoch from it on
-the CPU (``--device cpu``), validate, checkpoint, and resume; and without
-``--device`` the entry point asks for the CUDA card."""
+the CPU (``--device cpu``), validate, checkpoint, and resume; the ResNeXt
+and CIFAR presets the same way; and without ``--device`` the entry point
+asks for the CUDA card."""
 
 import logging
 import subprocess
@@ -76,6 +77,35 @@ def test_trains_validates_checkpoints_and_resumes(tree, tmp_path, log_lines):
                          "--auto-resume"))
     assert "Resumed from epoch 1 (step 6)" in log_lines
     assert resumed.step == 12 and ckpt.latest_epoch(str(prefix)) == 2
+
+
+@pytest.mark.parametrize("preset,extra,steps", [
+    # ResNeXt-50 32x4d at full width and depth from the record tree, with
+    # the host warp on (the Solver then zeroes the device warp)
+    ("imagenet_resnext50",
+     ("--image-shape", "32,32,3", "--num-classes", "3", "--num-examples",
+      "24", "--batch-size", "4", "--steps-per-dispatch", "2",
+      "--pipeline", "record", "--preprocess-threads", "2",
+      "--max-rotate-angle", "10"), 6),
+    # ResNet-18 with the CIFAR stem on the in-memory CIFAR-10 stand-in,
+    # the pad-4 crop and the CIFAR eval normalize
+    ("cifar10_resnet18", ("--num-examples", "32", "--batch-size", "8"), 4),
+], ids=["resnext50", "cifar_r18"])
+def test_preset_trains_validates_and_checkpoints(tree, tmp_path, log_lines,
+                                                 preset, extra, steps):
+    prefix = tmp_path / "ck" / preset
+    state = main(["--preset", preset, "--num-epochs", "1", "--frequent",
+                  "2", "--data-dir", str(tree), "--model-prefix",
+                  str(prefix), "--device", "cpu", *extra])
+    assert state.step == steps
+    assert ckpt.latest_epoch(str(prefix)) == 1
+    out = "\n".join(log_lines)
+    assert f"Epoch[0] Batch [{steps}]\tSpeed:" in out
+    assert "Epoch[0] Validation-accuracy=" in out
+    assert (tmp_path / "ck" / f"{preset}.metrics.jsonl").read_text().count(
+        '"split": "val"') == 1
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters())
 
 
 def test_defaults_to_the_card(tree, tmp_path):

@@ -1,7 +1,10 @@
 """The port's configuration and command line against the JAX package's:
 every field both configs have must be equal after parsing the same argv,
 every preset must equal the JAX preset, and a switch the port does not
-have yet must raise ``NotImplementedError`` naming its ROADMAP item."""
+have yet must raise ``NotImplementedError`` naming its ROADMAP item. The
+switches of ROADMAP items 11 and 14 (the model family, remat, the pool
+backward, the warps, the split augmenter) are ported: they parse as the
+JAX package parses them."""
 
 import dataclasses
 
@@ -72,6 +75,10 @@ def test_every_jax_flag_is_accepted():
     assert theirs <= ours and ours - theirs == {"device"}
 
 
+# the ROADMAP items whose switches the port has
+PORTED_ITEMS = (11, 14)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--version", "2"], 14),
     (["--dataset", "cifar10"], 14),
@@ -88,7 +95,12 @@ def test_every_jax_flag_is_accepted():
     (["--xla-opts", "xla_cpu_enable_fast_math=true"], 17),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_unported_switch_raises(argv, item):
-    jax_config.parse_config(argv)   # the JAX package accepts it
+    """A switch of an item still to port raises, naming the item; one of a
+    ported item (11, 14) parses to the JAX package's config."""
+    want = jax_config.parse_config(argv)   # the JAX package accepts it
+    if item in PORTED_ITEMS:
+        _assert_same(config.parse_config(argv), want)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):
         config.parse_config(argv)
@@ -96,9 +108,8 @@ def test_unported_switch_raises(argv, item):
 
 def test_solver_refuses_unported_presets():
     from resnet_tpu_torch.train.solver import Solver
-    for name in ("cifar10_resnet18", "imagenet_resnext50",
-                 "imagenet_resnet152_dp"):
-        with pytest.raises(NotImplementedError):
-            Solver(config.PRESETS[name](), device="cpu")
-    for name in ("imagenet_resnet50", "imagenet_resnet101_bf16"):
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Solver(config.PRESETS["imagenet_resnet152_dp"](), device="cpu")
+    for name in ("imagenet_resnet50", "imagenet_resnet101_bf16",
+                 "cifar10_resnet18", "imagenet_resnext50"):
         config.require_ported(config.PRESETS[name]())

@@ -722,3 +722,114 @@ def test_augment_impl_xla_takes_the_plain_version(cuda):
     # the same sampled values through the kernel and its plain version
     torch.testing.assert_close(outs["auto"], outs["xla"], rtol=1e-4,
                                atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the model family and the augmentation variants on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_mode_of_the_kernel_matches_plain_version(cuda, dtype):
+    """K1 in the split mode (identity normalization, no photometric
+    flags, float32 out) against its plain version; then the split
+    augmenter against the fused one on the same rows."""
+    from resnet_tpu_torch.ops.augment_fused import augment_imagenet_fused
+    canvas, rows = _inputs(cuda)
+    args = (canvas, rows, (32, 32), (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+            torch.float32)
+    for s2d in (False, True):
+        got = fused_crop_mirror_normalize(*args, s2d=s2d)
+        want = fused_crop_mirror_normalize_reference(*args, s2d=s2d)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+        d = DataConfig(max_random_contrast=0.3, max_random_illumination=20.0)
+        before = fused_crop_mirror_normalize.launches
+        outs = [augment_imagenet_fused(canvas, None, d, (32, 32), dtype,
+                                       s2d=s2d, rows=rows, split=split)
+                for split in (True, False)]
+        assert fused_crop_mirror_normalize.launches == before + 2
+        rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(outs[0].float(), outs[1].float(),
+                                   atol=5e-2, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("merge", [1, 2, 8])
+def test_block_diagonal_conv_matches_grouped_conv(cuda, merge, dtype):
+    """The block-diagonal lowering against cuDNN's grouped convolution at
+    G=8: outputs and the weight's gradient."""
+    from resnet_tpu_torch.models.resnet import Conv, GroupedConvDense
+    g = torch.Generator().manual_seed(merge)
+    x = torch.randn(4, 64, 14, 14, generator=g).to(cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(64, 8, 3, 3, generator=g) * 0.2
+    dy = torch.randn(4, 64, 7, 7, generator=g).to(cuda)
+    outs = []
+    for mod in (GroupedConvDense(64, 64, 3, 2, 1, 8, merge, dtype=dtype),
+                Conv(64, 64, 3, 2, 1, dtype=dtype, groups=8)):
+        mod = mod.to(cuda)
+        with torch.no_grad():
+            mod.weight.copy_(w)
+        y = mod(x)
+        y.backward(dy.to(dtype))
+        outs.append((y.float(), mod.weight.grad))
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else \
+        dict(atol=5e-2, rtol=2.0 ** -6)
+    torch.testing.assert_close(outs[0][0], outs[1][0], **tol)
+    torch.testing.assert_close(outs[0][1], outs[1][1],
+                               **({"atol": 1e-3, "rtol": 1e-4}
+                                  if dtype == torch.float32 else
+                                  {"atol": 0.5, "rtol": 2.0 ** -5}))
+
+
+def test_mask_pool_backward_matches_cpu(cuda):
+    from resnet_tpu_torch.ops.pool import stem_max_pool
+    g = torch.Generator().manual_seed(1)
+    x = torch.relu(torch.randn(2, 4, 9, 10, generator=g))
+    x[0, :, :4, :4] = 0.5
+    dy = torch.randn(2, 4, 5, 5, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+        xd.requires_grad_()
+        stem_max_pool(xd, "mask").backward(dy.to(dev))
+        grads.append(xd.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("remat", [dict(remat=True),
+                                   dict(remat_policy="conv")],
+                         ids=["remat", "policy_conv"])
+def test_remat_step_equals_the_plain_step(cuda, remat):
+    """One bn-ema ResNeXt train step with remat against the same step
+    without: gradients equal, running statistics refreshed once."""
+    from resnet_tpu_torch.models.resnet import ResNet
+    kw = dict(units=(1, 1, 1, 1), filters=(8, 16, 32, 64, 128),
+              num_classes=10, bottleneck=True, cardinality=4,
+              group_width=8, grouped_dense=True, grouped_merge=2,
+              bn_ema=True, stem_s2d=True)
+    torch.manual_seed(0)
+    base = ResNet(**kw).to(cuda, memory_format=torch.channels_last)
+    other = ResNet(**kw, **remat).to(cuda, memory_format=torch.channels_last)
+    other.load_state_dict(base.state_dict())
+    x = torch.randn(8, 32, 32, 12, device=cuda)
+    for m in (base, other):
+        m.train()
+        m(x).square().mean().backward()
+    for (n, p), (_, q) in zip(base.named_parameters(),
+                              other.named_parameters()):
+        torch.testing.assert_close(q.grad, p.grad, atol=1e-5, rtol=1e-5,
+                                   msg=n)
+    for (n, b), (_, c) in zip(base.named_buffers(), other.named_buffers()):
+        assert torch.equal(b, c), n
+
+
+def test_rotate_images_on_the_card_matches_cpu(cuda):
+    from resnet_tpu_torch.ops.augment import rotate_images
+    g = torch.Generator().manual_seed(2)
+    images = torch.randint(0, 256, (8, 64, 80, 3), generator=g,
+                           dtype=torch.uint8)
+    angles = (torch.rand(8, generator=g) - 0.5) * 0.6
+    shears = (torch.rand(8, generator=g) - 0.5) * 0.4
+    want = rotate_images(images, angles, shears)
+    got = rotate_images(images.to(cuda), angles.to(cuda), shears.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-5)
