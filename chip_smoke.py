@@ -24,7 +24,9 @@ switch inside; its img/s beside ``main_path``'s is the fit loop's input
 overhead, and CUDA events around its train calls give the device's idle
 share), ``fit_params`` round-trips its checkpoint through an MXNet
 ``.params`` file, ``fit_resume`` SIGTERMs a real CLI process mid-epoch
-and resumes it, and ``prefetch_check`` holds the side-stream prefetch
+and resumes it (all four processes on deterministic algorithms, through
+``--deterministic-train``, so that the resumed run can be held bit for
+bit), and ``prefetch_check`` holds the side-stream prefetch
 against the host batches. Each
 phase prints one JSON line; a failed check raises and the script exits
 non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
@@ -55,6 +57,21 @@ identity normalization against its plain version, the split augmenter
 against the fused one, and the preset's path with
 ``augment_impl="pallas-split"``).
 
+Data parallelism, each in processes of its own: ``dp_reference`` runs
+two ranks on the one card, joined by gloo (NCCL refuses two ranks on one
+device), and holds a float32 CIFAR ResNet-20's ``jit`` step against one
+step on the global batch, its ``shard_map`` step against the two halves
+averaged, a K=1 ``dispatch`` step against step-sync and bf16
+communication against float32; ``dp_path`` drives
+``imagenet_resnet152_dp`` at its per-replica width (ResNet-152, batch
+128, bf16, bn-ema, remat, s2d stem fed by K1, 4 steps a call) through
+``python -m resnet_tpu_torch.tools.launch -n 1`` over NCCL in both
+``dp_mode``s, with the collectives a step from a profiled call, holds
+each against the plain step from the same state on deterministic
+algorithms, and runs the chain and fused paths under ``shard_map`` (K4f,
+K4b, K2);
+``dryrun`` runs ``dryrun_multichip(1)`` over NCCL.
+
 ``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
 kernel); with no arguments every phase runs. The phases: k1, k1_split,
 mm_check, k3_path, k5_check, reduce_probe, reference, chain_reference,
@@ -62,7 +79,8 @@ fused_reference, subsample_reference, grouped_reference,
 resnext_reference, v2_reference, cifar_reference, mask_pool_reference,
 remat_reference, rotate_check, main, chain, fused, fullbatch, resnext,
 resnext_grouped, cifar, remat, k1_split_mode (after main, for its img/s),
-trace_probe, mm_timing, fit, fit_resume, prefetch.
+trace_probe, dp_reference, dp_path (after remat, for its img/s), dryrun,
+mm_timing, fit, fit_resume, prefetch.
 """
 
 import argparse
@@ -427,22 +445,12 @@ def reference_check(phase, n=8, preset="imagenet_resnet50",
             state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
             results[dev] = (float(m["loss_sum"]), state)
     (loss_cpu, st_cpu), (loss_gpu, st_gpu) = results["cpu"], results["cuda"]
-
-    def rel(xs, ys):
-        """||x - y|| / ||y|| over all tensors of a list together."""
-        num = den = 0.0
-        for x, y in zip(xs, ys):
-            x, y = x.detach().double().cpu(), y.detach().double().cpu()
-            num += float((x - y).norm() ** 2)
-            den += float(y.norm() ** 2)
-        return (num / den) ** 0.5
-
-    mom_err = rel(st_gpu.momentum, st_cpu.momentum)
+    mom_err = list_gap(st_gpu.momentum, st_cpu.momentum)
     head = [i for i, p in enumerate(st_cpu.model.parameters())
             if p is st_cpu.model.fc.weight]
-    head_err = rel([st_gpu.momentum[i] for i in head],
+    head_err = list_gap([st_gpu.momentum[i] for i in head],
                    [st_cpu.momentum[i] for i in head])
-    stats_err = rel(list(st_gpu.model.buffers()), list(st_cpu.model.buffers()))
+    stats_err = list_gap(st_gpu.model.buffers(), st_cpu.model.buffers())
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     emit(phase=phase, model=f"{preset} f32" if preset != "imagenet_resnet50"
          else "resnet50 f32", batch=n,
@@ -978,6 +986,7 @@ def trace_probe_phase(steps=5, warmup=3):
 # this order
 KERNEL_GROUPS = (
     ("augment kernel", ("fused_crop_mirror_normalize",)),
+    ("collectives (NCCL)", ("nccl",)),
     ("fused 1x1-conv kernels", ("matmul_stats_", "bwd_dx_", "bwd_dw_")),
     ("conv and matmul", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90",
                          "wgrad", "dgrad", "implicit")),
@@ -995,7 +1004,7 @@ def trace_dir():
     return tempfile.TemporaryDirectory(prefix="trace_", dir=_build.BUILD_DIR)
 
 
-def profile_call(phase, step, state, batch, images, untraced_ms):
+def profile_call(phase, step, state, batch, images, untraced_ms, steps=1):
     """One more train call under torch.profiler: device time by kernel
     group, and the device's busy share of an untraced call (device time
     over the untraced calls' median wall time; the traced call's own wall
@@ -1003,7 +1012,9 @@ def profile_call(phase, step, state, batch, images, untraced_ms):
     profiler module's reading of the exported chrome trace; device time
     counts kernels and the copy engines' copies and fills, as the
     profiler's CUDA events did before, and the copies' share is reported
-    apart."""
+    apart. Collectives a step (of the call's ``steps``): the host's
+    all-reduce calls (``c10d::allreduce_`` events) and NCCL's kernels
+    and their device ms."""
     from resnet_tpu_torch.utils.profiler import (DEVICE_CATEGORIES,
                                                  kernel_times, load_trace,
                                                  maybe_trace, newest_trace)
@@ -1015,7 +1026,11 @@ def profile_call(phase, step, state, batch, images, untraced_ms):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - tic) * 1e3
         trace = load_trace(newest_trace(logdir))
-    total_us, _ = kernel_times(trace, DEVICE_CATEGORIES)
+    total_us, launches = kernel_times(trace, DEVICE_CATEGORIES)
+    host_allreduce = sum(1 for e in trace.get("traceEvents", [])
+                         if e.get("cat") == "cpu_op"
+                         and e.get("name") == "c10d::allreduce_")
+    nccl = [name for name in total_us if "nccl" in name.lower()]
     copies_ms = (sum(total_us.values())
                  - sum(kernel_times(trace)[0].values())) / 1e3
     by_kernel = {name: us / 1e3 for name, us in total_us.items()}
@@ -1032,19 +1047,23 @@ def profile_call(phase, step, state, batch, images, untraced_ms):
          device_busy_share=(busy_ms / untraced_ms if busy_ms
                             else "not measured"),
          memcpy_memset_ms=copies_ms, device_ms_by_group=groups,
+         allreduce_calls_per_step=host_allreduce / steps,
+         nccl_kernel_launches_per_step=sum(launches[n] for n in nccl) / steps,
+         nccl_kernel_ms_per_step=sum(total_us[n] for n in nccl) / 1e3 / steps,
          top_kernels=[{"name": n[:90], "ms": ms} for n, ms in top])
 
 
 def train_path(phase, cfg, timed_calls, per_step, eval_after=False,
-               model="resnet50", absent=(), **fields):
+               model="resnet50", absent=(), group=None, **fields):
     """One full-width train path: ``model`` as ``cfg`` builds it (ResNet-50,
     batch 128, bf16, 6 steps a call, unless ``cfg`` says otherwise); 1
     warm-up call and ``timed_calls`` timed ones. ``per_step`` maps each
     kernel wrapper on this path to its expected launches per step, and
     each wrapper of ``absent`` must launch no time; the counts are set to 0
-    just before the path is driven and read just after. ``fields`` go on
-    the phase's line. Returns (wrapper -> launches, img/s of the median
-    call, peak GiB allocated)."""
+    just before the path is driven and read just after. ``group``: the
+    data-parallel step of ``cfg.train.dp_mode`` over that process group.
+    ``fields`` go on the phase's line. Returns (wrapper -> launches, img/s
+    of the median call, peak GiB allocated)."""
     from resnet_tpu_torch.config import DTYPES
     from resnet_tpu_torch.ops.augment import eval_center_crop, normalize
     from resnet_tpu_torch.ops.augment_fused import make_augment_fn
@@ -1055,10 +1074,13 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False,
     bs = cfg.train.batch_size
     cifar = cfg.model.dataset == "cifar10"
     side = cfg.data.image_shape[0] if cifar else CANVAS
-    state = create_train_state(cfg, device="cuda")
+    jit = group is not None and cfg.train.dp_mode == "jit"
+    state = create_train_state(cfg, device="cuda",
+                               bn_group=group if jit else None)
     step = make_train_step(label_smooth=cfg.train.label_smooth,
                            augment_fn=make_augment_fn(cfg),
-                           steps_per_dispatch=k)
+                           steps_per_dispatch=k, group=group,
+                           dp_mode=cfg.train.dp_mode)
     gen = torch.Generator(device="cuda").manual_seed(0)
     pool = []
     for _ in range(2):
@@ -1127,7 +1149,7 @@ def train_path(phase, cfg, timed_calls, per_step, eval_after=False,
          absent={w.__name__: w.launches for w in absent},
          peak_memory_gib=peak_gib, **fields,
          card=nvidia_smi_line(), device=torch.cuda.get_device_name(0))
-    profile_call(phase, step, state, pool[0], k * bs, call_s * 1e3)
+    profile_call(phase, step, state, pool[0], k * bs, call_s * 1e3, k)
     if eval_after:
         first = {name: v[0] if k > 1 else v for name, v in pool[0].items()}
         dtype = DTYPES[cfg.train.dtype]
@@ -1301,6 +1323,7 @@ def remat_path_phase(k1):
          peak_gib_no_remat=gib_off, peak_gib_saved=gib_off - gib_on,
          card=nvidia_smi_line())
     require(gib_on < gib_off, "remat saved no memory")
+    return img_on
 
 
 # ---------------------------------------------------------------------------
@@ -1499,21 +1522,21 @@ def _state_gap(path_a, path_b, init):
 
 
 def fit_resume_phase():
-    """Real CLI processes: two uninterrupted runs (the run-to-run gap), and
-    one that gets SIGTERM mid-epoch, exits 143 and is relaunched with
-    ``--auto-resume``; its final state may be no further from the first
-    run than twice the run-to-run gap (bit-equal where that gap is 0).
-    One epoch at 112x112 keeps the four processes short. The CPU test
-    ``test_kill_and_resume_is_bit_equal`` holds the replay bit for bit;
-    on the card two runs part (cuDNN's autotuned algorithms and atomics
-    differ between processes, and the step amplifies rounding), so this
-    phase shows that the resumed run is the same training, no more."""
+    """Real CLI processes: two uninterrupted runs, and one that gets
+    SIGTERM mid-epoch, exits 143 and is relaunched with ``--auto-resume``.
+    One epoch at 112x112 keeps the four processes short. Each runs the
+    entry point through ``deterministic_train`` (deterministic cuDNN and
+    cuBLAS, ``torch.use_deterministic_algorithms``): where the two
+    uninterrupted runs agree bit for bit, the resumed run must equal them
+    bit for bit, as the CPU test ``test_kill_and_resume_is_bit_equal``
+    holds it; where they do not, the ops that warned are named and the
+    resumed run may be no further from run a than twice run b is."""
     import os
     import signal
     root = os.path.dirname(os.path.abspath(__file__))
 
     def cli(prefix, *extra):
-        return [sys.executable, "-u", "-m", "resnet_tpu_torch.train_resnet",
+        return [sys.executable, "-u", __file__, "--deterministic-train",
                 *fit_argv(prefix, "--num-epochs", "1", "--image-shape",
                           "112,112,3", *extra)]
 
@@ -1534,17 +1557,21 @@ def fit_resume_phase():
                 proc.wait()
         return rc, "".join(out)
 
+    outs = []
     with trace_dir() as tmp:
         tic = time.perf_counter()
         rcs = {}
         for name in ("a", "b"):
             rcs[name], out = run(cli(os.path.join(tmp, name)))
+            outs.append(out)
             require(rcs[name] == 0, f"run {name} failed:\n{out[-3000:]}")
         killed = os.path.join(tmp, "killed")
         rc_kill, out = run(cli(killed), kill_at="Epoch[0] Batch [12]")
+        outs.append(out)
         require(rc_kill == 143, f"killed run exited {rc_kill}:\n{out[-3000:]}")
         saved = re.findall(r"checkpointed epoch 0 batch (\d+)", out)
         rc_res, out = run(cli(killed, "--auto-resume"))
+        outs.append(out)
         require(rc_res == 0, f"resumed run failed:\n{out[-3000:]}")
         require("Resumed from epoch 0" in out, "the relaunch did not resume")
         from resnet_tpu_torch.config import build_parser, config_from_args
@@ -1557,12 +1584,19 @@ def fit_resume_phase():
         resume_gap = _state_gap(os.path.join(tmp, "a", "1.pt"),
                                 os.path.join(killed, "1.pt"), init)
         seconds = time.perf_counter() - tic
-    require(resume_gap <= 2 * run_gap if run_gap > 0 else resume_gap == 0,
-            f"resumed run {resume_gap} from the uninterrupted one, runs "
-            f"{run_gap} from each other")
+    ops = sorted(set(NONDETERMINISTIC.findall("".join(outs))))
     emit(phase="fit_resume", killed_exit=rc_kill, saved_at_batch=saved,
          run_to_run_gap=run_gap, resume_gap=resume_gap,
+         bit_equal=resume_gap == 0 and run_gap == 0,
+         deterministic_algorithms=True, nondeterministic_ops=ops,
          seconds=seconds, processes=4)
+    if run_gap == 0:
+        require(resume_gap == 0, f"the runs agree bit for bit, the resumed "
+                f"run is {resume_gap} from them")
+    else:
+        require(resume_gap <= 2 * run_gap,
+                f"resumed run {resume_gap} from the uninterrupted one, runs "
+                f"{run_gap} from each other (nondeterministic: {ops})")
 
 
 def prefetch_check_phase(cfg):
@@ -1632,6 +1666,385 @@ def prefetch_check_phase(cfg):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism: the modes over two ranks against plain computations, the
+# imagenet_resnet152_dp path at world size 1, the dry run
+# ---------------------------------------------------------------------------
+
+# a data-parallel step against its plain computation, float32 with TF32
+# off, each list of tensors as a whole (||a - b|| / ||b|| over all its
+# tensors together). The two sum in other orders (a global mean from two
+# half means, a gradient from two half backwards, cuDNN's algorithm for
+# another batch). How far that parts one step of this net, measured on the
+# CPU by switching the conv algorithm alone: params 6.2e-5, momentum (the
+# update, ill-conditioned at init) 7.2e-3, the fc head's momentum 4.0e-6,
+# running statistics 1.5e-7. How far a step on one half of the batch (no
+# reduction) parts: 1.0e-2, 0.86, 0.84, 7.6e-3. Each bar sits between
+DP_TOL = {"params": 1e-3, "momentum": 1e-1, "fc_momentum": 1e-3,
+          "running_stats": 1e-4, "loss": 1e-4}
+# dispatch at K=1 against step-sync: one update of an average against the
+# average of two updates, the same arithmetic reordered (6.2e-8 on the CPU)
+DISPATCH_TOL = {k: 1e-5 for k in DP_TOL}
+# bf16 gradient communication against float32: each rank's gradient and
+# their sum are rounded to bf16's 8 significant bits, so the update moves
+# by at most 2^-7 of itself (cancellation between the ranks aside), and
+# by more than nothing
+BF16_COMM_TOL = 2.0 ** -7
+
+
+def deterministic_train(argv):
+    """``resnet_tpu_torch.train_resnet.main(argv)`` with cuDNN's and
+    cuBLAS's deterministic algorithms and no autotuning, and
+    ``torch.use_deterministic_algorithms`` on: every op that has no
+    deterministic form warns, naming itself, on this process's output."""
+    import os
+    import warnings
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("default")
+    from resnet_tpu_torch.train_resnet import main as train_main
+    train_main(argv)
+    return 0
+
+
+NONDETERMINISTIC = re.compile(r"UserWarning: (\S+) does not have a "
+                              r"deterministic implementation")
+
+
+def rank_script(only, world, extra=(), timeout=600):
+    """Run ``world`` ranks of this script's ``--only only`` (a rank
+    program) through ``python -m resnet_tpu_torch.tools.launch -n world``;
+    relay their output and return its JSON lines. A failed rank fails the
+    launch; past ``timeout`` the launcher is told to stop its ranks. The
+    ranks' cuBLAS keeps the fixed workspace its deterministic mode needs
+    (``dp_equivalence``)."""
+    import os
+    import signal
+    from resnet_tpu_torch.tools.launch import free_port
+    cmd = [sys.executable, "-m", "resnet_tpu_torch.tools.launch", "-n",
+           str(world), "--coordinator", f"127.0.0.1:{free_port()}", "--",
+           sys.executable, "-u", __file__, "--child", "--only", only, *extra]
+    sys.stdout.flush()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ,
+                                     CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)    # the launcher stops its ranks
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    require(proc.returncode == 0,
+            f"{only} failed (exit {proc.returncode})")
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def list_gap(xs, ys):
+    """||x - y|| / ||y|| over all tensors of two lists together (on the
+    CPU: the lists may lie on two devices)."""
+    num = den = 0.0
+    for x, y in zip(xs, ys):
+        x, y = x.detach().double().cpu(), y.detach().double().cpu()
+        num += float((x - y).norm() ** 2)
+        den += float(y.norm() ** 2)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def state_gap(a, b):
+    """``list_gap`` of two train states' params, momentum, fc head
+    momentum and BN running statistics."""
+    fc = [i for i, p in enumerate(b.model.parameters())
+          if p is b.model.fc.weight or p is b.model.fc.bias]
+    return {"params": list_gap(a.model.parameters(), b.model.parameters()),
+            "momentum": list_gap(a.momentum, b.momentum),
+            "fc_momentum": list_gap([a.momentum[i] for i in fc],
+                                    [b.momentum[i] for i in fc]),
+            "running_stats": list_gap(a.model.buffers(), b.model.buffers())}
+
+
+def metrics_gap(m, want):
+    """Relative error of the loss and count sums (a top-1 or top-5 hit may
+    flip on a near-tie, so those are printed, not held)."""
+    return max(abs(float(m[k]) - float(want[k]))
+               / max(abs(float(want[k])), 1e-30)
+               for k in ("loss_sum", "count"))
+
+
+def dp_reference_rank():
+    """One rank of ``dp_reference``: a CIFAR ResNet-20, float32 (TF32 off),
+    global batch 16 at 32x32, each rank on the one card, joined by gloo.
+    The four checks of ``dp_reference_phase``; rank 0 computes each plain
+    computation and prints the lines."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from resnet_tpu_torch.config import cifar10_resnet18
+    from resnet_tpu_torch.ops.augment import sample_cifar_rows
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.ops.metrics import cross_entropy_loss, metric_sums
+    from resnet_tpu_torch.parallel.mesh import replica_block
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    world = int(os.environ["RESNET_TPU_NUM_PROCS"])
+    rank = int(os.environ["RESNET_TPU_PROC_ID"])
+    # gloo, chosen here and only here: NCCL refuses two ranks on one
+    # device. Gloo takes CUDA tensors, staging them through pinned host
+    # memory inside its all-reduce
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['RESNET_TPU_COORDINATOR']}",
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=300))
+    group = dist.group.WORLD
+    torch.cuda.set_device(0)
+    cfg = cifar10_resnet18()
+    cfg.model.depth, cfg.train.batch_size = 20, 16
+    n = cfg.train.batch_size
+    aug = make_augment_fn(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"image": torch.randint(0, 256, (n, 32, 32, 3), generator=gen,
+                                    device="cuda", dtype=torch.uint8),
+             "label": torch.randint(0, 10, (n,), generator=gen,
+                                    device="cuda"),
+             "rows": sample_cifar_rows(gen, cfg.data, n, device="cuda")}
+    block = replica_block(n, rank, world)
+    mine = {k: v[block] for k, v in batch.items()}
+    common = dict(model="cifar_resnet20 f32", batch=n, ranks=world,
+                  backend="gloo over CUDA tensors (explicit: NCCL refuses "
+                  "two ranks on one device)",
+                  device=torch.cuda.get_device_name(0))
+
+    def dp_step(mode, **kw):
+        st = create_train_state(cfg, device="cuda",
+                                bn_group=group if mode == "jit" else None)
+        return make_train_step(augment_fn=aug, group=group, dp_mode=mode,
+                               **kw)(st, mine)
+
+    def report(phase, got, want, tol, **fields):
+        (st, m), (st_ref, m_ref) = got, want
+        gap = dict(state_gap(st, st_ref), loss=metrics_gap(m, m_ref))
+        emit(phase=phase, rel_err=gap, tol=tol,
+             top1=[float(m["top1_sum"]), float(m_ref["top1_sum"])],
+             **fields, **common)
+        require(all(gap[k] <= tol[k] for k in tol), f"{phase}: {gap}")
+
+    with full_float32():
+        # 1. jit at world size 2 against one step on the global batch
+        got = dp_step("jit")
+        if rank == 0:
+            plain = create_train_state(cfg, device="cuda")
+            report("dp_reference_jit", got,
+                   make_train_step(augment_fn=aug)(plain, batch), DP_TOL,
+                   against="world size 1 on the global batch")
+        # 2. shard_map against the halves through the local model, their
+        # gradients and BN statistics averaged
+        got = dp_step("shard_map")
+        if rank == 0:
+            states, grads, sums = [], [], []
+            for r in range(world):
+                half = {k: v[replica_block(n, r, world)]
+                        for k, v in batch.items()}
+                st = create_train_state(cfg, device="cuda")
+                st.model.train()
+                logits = st.model(aug(half["image"], None, None,
+                                      half["rows"]))
+                loss = cross_entropy_loss(logits, half["label"])
+                grads.append(torch.autograd.grad(
+                    loss, list(st.model.parameters())))
+                sums.append(metric_sums(logits, half["label"], loss))
+                states.append(st)
+            with torch.no_grad():
+                for bufs in zip(*(st.model.buffers() for st in states)):
+                    bufs[0].copy_(sum(bufs) / world)
+            states[0].apply_gradients([sum(g) / world for g in zip(*grads)])
+            report("dp_reference_shard_map", got,
+                   (states[0], {k: sum(m[k] for m in sums) for k in sums[0]}),
+                   DP_TOL, against="halves through the local model, "
+                   "gradients and BN statistics averaged")
+        # 3. dispatch at K=1 against step-sync
+        step_sync = got
+        got = dp_step("shard_map", dp_sync="dispatch")
+        if rank == 0:
+            report("dp_reference_dispatch_k1", got, step_sync, DISPATCH_TOL,
+                   against="shard_map step-sync")
+        # 4. bf16 gradient communication against float32
+        got = dp_step("shard_map", comm_dtype=torch.bfloat16)
+        if rank == 0:
+            (st, _), (ref, _) = got, step_sync
+            ratio = list_gap(st.momentum, ref.momentum)
+            emit(phase="dp_reference_bf16_comm", momentum_rel_diff=ratio,
+                 tol=BF16_COMM_TOL, against="float32 communication",
+                 **common)
+            require(0 < ratio <= BF16_COMM_TOL, f"bf16 comm: {ratio}")
+    dist.destroy_process_group()
+
+
+def dp_reference_phase():
+    """The data-parallel modes over two ranks on the one card (gloo)
+    against plain computations: a ``jit`` step against one step on the
+    global batch, a ``shard_map`` step against its halves averaged, a K=1
+    ``dispatch`` step against step-sync, bf16 communication against
+    float32. Returns the seconds it took."""
+    tic = time.perf_counter()
+    rank_script("dp_reference_rank", 2)
+    return time.perf_counter() - tic
+
+
+def dp_equivalence(cfg, group):
+    """One call of ``cfg``'s step at world size 1 through the data-parallel
+    step and through the plain one, from the same seeded state, under
+    deterministic algorithms; the plain call twice for its own run-to-run
+    gap. Returns (DP vs plain gap, plain vs plain gap, ops that warned)."""
+    import warnings
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    k, bs = cfg.train.steps_per_dispatch, cfg.train.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"image": torch.randint(0, 256, (k, bs, CANVAS, CANVAS, 3),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.uint8),
+             "label": torch.randint(0, cfg.data.num_classes, (k, bs),
+                                    generator=gen, device="cuda"),
+             "dims": torch.full((k, bs, 4), CANVAS, dtype=torch.int32,
+                                device="cuda")}
+    jit = cfg.train.dp_mode == "jit"
+
+    def call(dp):
+        state = create_train_state(cfg, device="cuda",
+                                   bn_group=group if dp and jit else None)
+        step = make_train_step(augment_fn=make_augment_fn(cfg),
+                               steps_per_dispatch=k,
+                               group=group if dp else None,
+                               dp_mode=cfg.train.dp_mode)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return state
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    with deterministic_cudnn(), warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain = call(False)
+            dp_gap = max(state_gap(call(True), plain).values())
+            plain_gap = max(state_gap(call(False), plain).values())
+        finally:
+            torch.use_deterministic_algorithms(prev)
+    ops = sorted({m.group(1) for m in (NONDETERMINISTIC.search(
+        f"UserWarning: {x.message}") for x in w) if m})
+    return dp_gap, plain_gap, ops
+
+
+def allreduce_call_us(group, calls=200):
+    """Host microseconds a call of the BatchNorm's all-reduce (two rows of
+    256 channels, through ``all_reduce_sum``) takes, and of a clone of the
+    same tensor beside it; both end with a synchronize."""
+    from resnet_tpu_torch.parallel.dist import all_reduce_sum
+    x = torch.zeros(2, 256, device="cuda")
+    out = {}
+    for name, fn in (("allreduce", lambda: all_reduce_sum(x, group)),
+                     ("clone", lambda: x.clone())):
+        fn()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - tic) / calls * 1e6
+    return out
+
+
+def dp_path_rank(remat_img_s):
+    """The body of ``dp_path``, one rank under the launcher, NCCL."""
+    from resnet_tpu_torch.config import (imagenet_resnet50,
+                                         imagenet_resnet152_dp)
+    from resnet_tpu_torch.ops import fused_unit as fu
+    from resnet_tpu_torch.ops.augment_fused import \
+        fused_crop_mirror_normalize as k1
+    from resnet_tpu_torch.ops.fused_convbn import matmul_with_stats as k2
+    from resnet_tpu_torch.parallel.dist import (finalize_distributed,
+                                                maybe_init_distributed,
+                                                world_group)
+    maybe_init_distributed()
+    group = world_group()
+    backend = torch.distributed.get_backend()
+    require(backend == "nccl", f"the DP path runs on {backend}")
+    out = {}
+    for mode in ("shard_map", "jit"):
+        cfg = imagenet_resnet152_dp()
+        cfg.train.num_devices, cfg.train.batch_size = 1, BATCH
+        cfg.train.dp_mode = mode
+        launches, img_s, gib = train_path(
+            f"dp_path_{mode}", cfg, 2, {k1: 1}, model="resnet152",
+            group=group, dp_mode=mode, world_size=1, backend=backend,
+            remat=True, remat_path_img_per_s=remat_img_s or "not run",
+            note="imagenet_resnet152_dp through the launcher at its "
+                 "per-replica width, --num-devices 1 --batch-size 128")
+        dp_gap, plain_gap, ops = dp_equivalence(cfg, group)
+        emit(phase=f"dp_path_{mode}_vs_plain", dp_vs_plain_rel_gap=dp_gap,
+             plain_run_to_run_rel_gap=plain_gap, bit_equal=dp_gap == 0,
+             nondeterministic_ops=ops, card=nvidia_smi_line())
+        # at world size 1 every reduction is over one rank and every weight
+        # is exactly 1: bit-equal where the plain step repeats bit for bit;
+        # else no further apart than two plain runs are
+        require(dp_gap == 0 if plain_gap == 0 else dp_gap <= 2 * plain_gap,
+                f"dp_path {mode}: {dp_gap} from the plain call, plain runs "
+                f"{plain_gap} apart")
+        out[mode] = dict(launches=launches[k1], img_per_s=img_s,
+                         peak_gib=gib)
+    # the fused paths under shard_map: K4f and K4b (chain), K2 (fused)
+    paths = {}
+    for name, switch, per_step in (
+            ("chain", {"unit_chain": "pallas"},
+             {k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
+              fu.fused_backward: 36}),
+            ("fused", {"fused_convbn": True}, {k1: 1, k2: 36})):
+        cfg = imagenet_resnet50()
+        cfg.train.bn_ema, cfg.train.dp_mode = False, "shard_map"
+        for key, value in switch.items():
+            setattr(cfg.train, key, value)
+        launches, _, _ = train_path(f"dp_{name}_path", cfg, 1, per_step,
+                                    group=group, dp_mode="shard_map",
+                                    world_size=1, backend=backend)
+        paths[f"{name}_launches"] = {w.__name__: n
+                                     for w, n in launches.items()}
+    emit(phase="dp_path_summary", **{f"{m}_{k}": v for m, d in out.items()
+                                     for k, v in d.items()}, **paths,
+         host_us_per_call=allreduce_call_us(group),
+         remat_path_img_per_s=remat_img_s or "not run",
+         card=nvidia_smi_line())
+    finalize_distributed()
+
+
+def dp_path_phase(remat_img_s):
+    """``imagenet_resnet152_dp`` at its per-replica width through the
+    port's launcher at world size 1 over NCCL, in both ``dp_mode``s, and
+    the chain and fused paths under ``shard_map``. Returns the summary
+    line."""
+    lines = rank_script("dp_path_rank", 1,
+                        ("--main-img-s", str(remat_img_s or 0.0)))
+    return next(x for x in lines if x.get("phase") == "dp_path_summary")
+
+
+def dryrun_phase():
+    """``dryrun_multichip(1)``: one rank on the card, NCCL."""
+    from resnet_tpu_torch.dryrun import dryrun_multichip
+    tic = time.perf_counter()
+    sys.stdout.flush()
+    dryrun_multichip(1)
+    emit(phase="dryrun", ranks=1, device="cuda", backend="nccl",
+         seconds=time.perf_counter() - tic)
+
+
 def build_phase():
     from resnet_tpu_torch import _build
     tic = time.perf_counter()
@@ -1687,7 +2100,14 @@ def child_phases(phases, main_img_s=None):
 
 
 def run_child(only, main_img_s):
-    """The body of a ``child_phases`` process."""
+    """The body of a ``child_phases`` process, or of one rank of
+    ``rank_script`` (``main_img_s`` is then remat_path's img/s)."""
+    if "dp_reference_rank" in only:
+        dp_reference_rank()
+        return 0
+    if "dp_path_rank" in only:
+        dp_path_rank(main_img_s)
+        return 0
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.models.registry import get_model
     if "mm_timing" in only:
@@ -1705,6 +2125,10 @@ def run_child(only, main_img_s):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--deterministic-train"]:
+        # fit_resume's CLI processes: the training entry point itself
+        return deterministic_train(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="", help="comma-separated phases "
                         "to run after the build (default: all)")
@@ -1827,8 +2251,9 @@ def main(argv=None):
         from resnet_tpu_torch.config import cifar10_resnet18
         train_path("cifar_path", cifar10_resnet18(), 20, {}, eval_after=True,
                    model="cifar_resnet18", absent=(k1,))
+    remat_img_s = None
     if on("remat"):
-        remat_path_phase(k1)
+        remat_img_s = remat_path_phase(k1)
     if on("k1_split_mode"):
         split_time = k1_split_mode_phase(cfg)
         split_cfg = copy.deepcopy(cfg)
@@ -1838,6 +2263,15 @@ def main(argv=None):
             main_path_img_per_s=main_img_s)
     if on("trace_probe"):
         trace_probe_phase()
+    # data parallelism, each in processes of its own: two gloo ranks on the
+    # card, the imagenet_resnet152_dp path at world size 1 over NCCL, the
+    # dry run
+    if on("dp_reference"):
+        dp_reference_phase()
+    if on("dp_path"):
+        dp = dp_path_phase(remat_img_s)
+    if on("dryrun"):
+        dryrun_phase()
     # last, in processes of their own (child_phases): mm_timing's
     # per-shape profiled windows leave the host slower for the rest of the
     # process (the bn-ema path's calls took 0.87 s instead of 0.67 after
@@ -1871,23 +2305,34 @@ def main(argv=None):
                  bound_by=k1_time["bound_by"], library_ms=None,
                  resnext_path_launches=resnext_l[k1],
                  split_mode_launches=split_l[k1],
+                 dp_path_launches={m: dp[f"{m}_launches"]
+                                   for m in ("shard_map", "jit")},
                  split_mode_max_abs_err=split_time["max_abs_err"]),
             # ms, plain_ms and bound_ms of the next four: sums over the
             # launches of one ResNet-50 step at batch 128, bf16
-            mm_kernel("matmul_with_stats", "matmul_stats.cu",
-                      "resnet_tpu/ops/fused_convbn.py:33", fused_l[k2],
-                      fwd_worst["k2"], step_ms["k2"]),
+            dict(mm_kernel("matmul_with_stats", "matmul_stats.cu",
+                           "resnet_tpu/ops/fused_convbn.py:33", fused_l[k2],
+                           fwd_worst["k2"], step_ms["k2"]),
+                 dp_fused_path_launches=dp["fused_launches"][
+                     "matmul_with_stats"]),
             mm_kernel("normalized_matmul_with_stats", "matmul_stats.cu",
                       "resnet_tpu/ops/fused_chain.py:33", k3_launches,
                       fwd_worst["k3"], step_ms["k3"]),
-            mm_kernel("matmul_stats+norm_relu_matmul_stats",
-                      "matmul_stats.cu", "resnet_tpu/ops/fused_unit.py:71",
-                      chain_l[fu.matmul_stats]
-                      + chain_l[fu.norm_relu_matmul_stats],
-                      fwd_worst["k4f"], step_ms["k4f"]),
-            mm_kernel("fused_backward", "matmul_stats_bwd.cu",
-                      "resnet_tpu/ops/fused_unit.py:138",
-                      chain_l[fu.fused_backward], bwd_worst, step_ms["k4b"]),
+            dict(mm_kernel("matmul_stats+norm_relu_matmul_stats",
+                           "matmul_stats.cu",
+                           "resnet_tpu/ops/fused_unit.py:71",
+                           chain_l[fu.matmul_stats]
+                           + chain_l[fu.norm_relu_matmul_stats],
+                           fwd_worst["k4f"], step_ms["k4f"]),
+                 dp_chain_path_launches=(
+                     dp["chain_launches"]["matmul_stats"]
+                     + dp["chain_launches"]["norm_relu_matmul_stats"])),
+            dict(mm_kernel("fused_backward", "matmul_stats_bwd.cu",
+                           "resnet_tpu/ops/fused_unit.py:138",
+                           chain_l[fu.fused_backward], bwd_worst,
+                           step_ms["k4b"]),
+                 dp_chain_path_launches=dp["chain_launches"][
+                     "fused_backward"]),
             # ms, plain_ms, bound_ms and library_ms: sums over the reduce
             # probe's 8 shapes, bf16
             dict(name="cuda_sums", route="cuda",

@@ -14,10 +14,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
+
+# the launcher's rendezvous (parallel/dist.py)
+ENV_COORD = "RESNET_TPU_COORDINATOR"
 
 # TrainConfig.dtype -> the compute dtype
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -140,9 +144,9 @@ class TrainConfig:
     label_smooth: float = 0.0
     seed: int = 0
     check_numerics: bool = False      # anomaly detection + a finite loss
-    num_devices: int = 0              # 0 = all local devices
+    num_devices: int = 0              # 0 = the world size
     dp_mode: str = "jit"
-    sync_bn: bool = False
+    sync_bn: bool = False             # global-batch BN (jit mode has it)
     dp_comm_dtype: str = "float32"
     dp_sync: str = "step"
 
@@ -221,8 +225,10 @@ def imagenet_resnet101_bf16() -> Config:
 
 
 def imagenet_resnet152_dp() -> Config:
-    """ResNet-152 over 16 devices with remat (not ported: data
-    parallel)."""
+    """ResNet-152 over 16 devices with remat: run it with as many ranks
+    (``python -m resnet_tpu_torch.tools.launch -n 16 -- ...``), or with
+    ``--num-devices`` set to the world size and ``--batch-size`` the
+    global batch."""
     cfg = Config()
     cfg.model = dataclasses.replace(cfg.model, depth=152)
     cfg.train = dataclasses.replace(
@@ -244,12 +250,17 @@ PRESETS = {
 
 def require_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` if ``cfg`` selects something the port
-    does not have yet; the message names the ``ROADMAP.md`` item."""
+    does not have yet; the message names the ``ROADMAP.md`` item. More
+    than one device needs a process a device, started by the launcher:
+    without its environment ``ValueError``."""
     t = cfg.train
+    if t.num_devices > 1 and ENV_COORD not in os.environ:
+        raise ValueError(
+            f"num_devices={t.num_devices}: the port drives one device per "
+            f"process; start {t.num_devices} processes with python -m "
+            f"resnet_tpu_torch.tools.launch -n {t.num_devices} -- python -m "
+            "resnet_tpu_torch.train_resnet ...")
     missing = []
-    if t.num_devices > 1:
-        missing.append(("data parallel over more than one device "
-                        "(dp_mode, dp_sync, sync_bn, dp_comm_dtype)", 15))
     if t.xla_opts:
         missing.append(("backend options in place of --xla-opts", 17))
     if missing:
@@ -265,8 +276,8 @@ def require_ported(cfg: Config) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train ResNet on one NVIDIA GPU (PyTorch port of "
-                    "train_resnet.py)")
+        description="Train ResNet on NVIDIA GPUs, one process a card "
+                    "(PyTorch port of train_resnet.py)")
     p.add_argument("--preset", choices=sorted(PRESETS), default=None,
                    help="start from a canned BASELINE config")
     p.add_argument("--device", default=None,
@@ -380,7 +391,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="anomaly detection and a finite-loss check")
     p.add_argument("--seed", type=int, default=None)
     # parallel
-    p.add_argument("--num-devices", type=int, default=None)
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="replicas: 0 or the launcher's world size")
     p.add_argument("--dp-mode", choices=["jit", "shard_map"], default=None)
     p.add_argument("--dp-comm-dtype", choices=["float32", "bfloat16"],
                    default=None)

@@ -1,6 +1,6 @@
 """Host-side data iterators: synthetic, in-memory and record-backed.
 
-Port of ``resnet_tpu/data/loader.py`` for one process. Iterators yield host
+Port of ``resnet_tpu/data/loader.py``. Iterators yield host
 numpy batches ``{"image": uint8 NHWC, "label": int32}`` (plus ``dims``
 from the record pipeline's letterbox and ``mask`` on padded val batches);
 decode runs below (``data/pipeline.py`` and the native reader),
@@ -9,6 +9,11 @@ augmentation above, on the device (``ops/augment_fused.py``).
 Determinism: the order is a pure function of (seed, epoch), and iterators
 expose ``state_dict()``/``load_state_dict()`` so a checkpoint resume
 replays the exact stream.
+
+Data parallelism: ``num_parts``/``part_index`` (the world size and this
+rank) give each process its own disjoint share of the data, read in
+batches of ``batch_size // num_parts`` (``batch_size`` is global), as the
+reference's ``ImageRecordIter(num_parts, part_index)`` does.
 """
 
 from __future__ import annotations
@@ -71,16 +76,19 @@ class SyntheticIter(DataIter):
 
 class MemoryIter(DataIter):
     """In-memory dataset (the mx.io.NDArrayIter analog) with deterministic
-    per-epoch shuffling."""
+    per-epoch shuffling and num_parts/part_index sharding: part
+    ``part_index`` holds every ``num_parts``-th example from it."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
+                 num_parts: int = 1, part_index: int = 0,
                  drop_last: bool = True, pad_last: bool = False):
         if images.dtype != np.uint8 or images.ndim != 4:
             raise ValueError(f"images must be uint8 NHWC, got {images.dtype} "
                              f"{images.shape}")
-        self.images = images
-        self.labels = labels.astype(np.int32)
+        part = slice(part_index, None, num_parts)
+        self.images = images[part]
+        self.labels = labels[part].astype(np.int32)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -158,27 +166,35 @@ def synthetic_cifar(num_examples: int = 2048, num_classes: int = 10,
     return images, labels
 
 
-def make_train_iter(cfg) -> DataIter:
-    """Pipeline selector (ref:core/loader.py get_data_iter)."""
+def make_train_iter(cfg, num_parts: int = 1, part_index: int = 0) -> DataIter:
+    """Pipeline selector (ref:core/loader.py get_data_iter). With
+    ``num_parts``/``part_index`` (process count and rank) the iterator
+    yields this process's local share of each global batch."""
     t, d = cfg.train, cfg.data
+    local_bs = t.batch_size // max(num_parts, 1)
     if d.pipeline == "synthetic":
         steps = max(d.num_examples // t.batch_size, 1)
-        return SyntheticIter(t.batch_size, d.image_shape, d.num_classes,
+        return SyntheticIter(local_bs, d.image_shape, d.num_classes,
                              steps_per_epoch=steps, seed=t.seed)
     if d.pipeline == "memory":
         images, labels = synthetic_cifar(
             d.num_examples, d.num_classes, d.image_shape, seed=t.seed)
-        return MemoryIter(images, labels, t.batch_size, shuffle=d.shuffle,
-                          seed=t.seed)
+        return MemoryIter(images, labels, local_bs, shuffle=d.shuffle,
+                          seed=t.seed, num_parts=num_parts,
+                          part_index=part_index)
     if d.pipeline == "record":
         from resnet_tpu_torch.data.pipeline import RecordIter
-        return RecordIter(cfg, train=True)
+        return RecordIter(cfg, train=True, num_parts=num_parts,
+                          part_index=part_index)
     raise ValueError(f"unknown pipeline {d.pipeline!r}")
 
 
-def make_val_iter(cfg) -> Optional[DataIter]:
-    """Validation iterator (centre-crop only path), or None."""
+def make_val_iter(cfg, num_parts: int = 1,
+                  part_index: int = 0) -> Optional[DataIter]:
+    """Validation iterator (centre-crop only path), or None; sharded as
+    ``make_train_iter``, each part's last batch padded and masked."""
     t, d = cfg.train, cfg.data
+    local_bs = t.batch_size // max(num_parts, 1)
     if d.pipeline == "synthetic":
         return None
     if d.pipeline == "memory":
@@ -186,8 +202,10 @@ def make_val_iter(cfg) -> Optional[DataIter]:
         images, labels = synthetic_cifar(
             max(d.num_examples // 10, t.batch_size), d.num_classes,
             d.image_shape, seed=t.seed + 10_000)
-        return MemoryIter(images, labels, t.batch_size, shuffle=False,
-                          seed=t.seed, drop_last=False, pad_last=True)
+        return MemoryIter(images, labels, local_bs, shuffle=False,
+                          seed=t.seed, num_parts=num_parts,
+                          part_index=part_index, drop_last=False,
+                          pad_last=True)
     if d.pipeline == "record":
         from resnet_tpu_torch.data.pipeline import RecordIter, resolve_shards
         try:
@@ -197,5 +215,6 @@ def make_val_iter(cfg) -> Optional[DataIter]:
                 "no val .rec found (%s/%s): skipping validation",
                 d.data_dir, d.val_rec)
             return None
-        return RecordIter(cfg, train=False)
+        return RecordIter(cfg, train=False, num_parts=num_parts,
+                          part_index=part_index)
     raise ValueError(f"unknown pipeline {d.pipeline!r}")

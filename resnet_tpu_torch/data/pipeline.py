@@ -1,5 +1,5 @@
 """Record-backed input pipeline: the native decode pool behind a prefetch
-thread. Port of ``resnet_tpu/data/pipeline.py`` for one process.
+thread. Port of ``resnet_tpu/data/pipeline.py``.
 
 A background thread drives the decode pool (``data/native.py``) and keeps
 ``prefetch_buffer`` canvas batches queued; the training loop pops ready
@@ -18,6 +18,10 @@ Checkpoint state: ``cursor_state(nbatch)`` gives (epoch, batch, record)
 as CONSUMED by the trainer, and resume seeks the deterministic epoch
 stream to that record, so a mid-epoch resume replays the identical
 remaining stream.
+
+Data parallelism: ``num_parts``/``part_index`` hand each process every
+``num_parts``-th record from ``part_index`` on, in batches of
+``batch_size // num_parts``.
 
 Host warp: with ``rotate_backend="host"`` and a nonzero
 ``max_rotate_angle`` or ``max_shear_ratio``, train canvases are warped in
@@ -73,7 +77,8 @@ def resolve_shards(data_dir: str, name: str) -> List[str]:
 class RecordIter(DataIter):
     """DataIter over a .rec shard set via the record loader."""
 
-    def __init__(self, cfg, train: bool):
+    def __init__(self, cfg, train: bool, num_parts: int = 1,
+                 part_index: int = 0):
         d, t = cfg.data, cfg.train
         recs = resolve_shards(d.data_dir, d.train_rec if train else d.val_rec)
         # an explicitly configured index file for a single-file rec wins
@@ -94,7 +99,8 @@ class RecordIter(DataIter):
         self.train = train
         self.shuffle = d.shuffle and train
         self.seed = t.seed
-        self.batch_size = t.batch_size
+        # batch_size is global; each process decodes its 1/num_parts share
+        self.batch_size = t.batch_size // max(num_parts, 1)
         self.prefetch_buffer = max(1, d.prefetch_buffer)
         # the canvas override is a TRAIN fidelity knob; the val transform
         # stays at the reference's fixed resize-256/centre-crop-224
@@ -104,7 +110,7 @@ class RecordIter(DataIter):
         from resnet_tpu_torch.data.native import make_record_loader
         self.loader = make_record_loader(
             recs, idxs, self.canvas_hw, threads=d.preprocess_threads,
-            letterbox=train)
+            num_parts=num_parts, part_index=part_index, letterbox=train)
         # the host rotate/shear warp, train only
         self._warp = None
         self._warp_pool = None

@@ -17,15 +17,24 @@ The unit's ``Conv`` and ``BatchNorm`` modules own the weights and running
 statistics as on the standard path, so the parameter tree, ``state_dict()``
 and the weight bridge do not change: ``unit_chain`` is purely a switch of
 execution path. Eval always takes the standard path.
+
+Where the ``BatchNorm`` modules carry a process ``group`` (``dp_mode=
+"jit"``), every (sum, sum of squares) pair is summed over the group by a
+differentiable all-reduce before the statistics are formed, and the count
+is the global batch's: the statistics of the global batch, as the JAX
+chain takes them when GSPMD partitions its sums. The backward all-reduces
+the sums' cotangents, which the ops' backward then consumes.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from resnet_tpu_torch.models.fused import image_of, rows_of, weight_2d
 from resnet_tpu_torch.ops.fused_unit import (matmul_stats,
                                              norm_relu_matmul_stats)
+from resnet_tpu_torch.parallel.dist import all_reduce_sum
 
 
 def _stats_from_sums(s, ss, count):
@@ -35,8 +44,13 @@ def _stats_from_sums(s, ss, count):
 
 
 def _batch_stats(bn, s, ss, count):
-    """Batch mean/var from the epilogue sums; refreshes ``bn``'s running
-    statistics (``ra = m*ra + (1-m)*batch``)."""
+    """Batch mean/var from the epilogue sums, over ``bn.group``'s global
+    batch where ``bn`` has one; refreshes ``bn``'s running statistics
+    (``ra = m*ra + (1-m)*batch``)."""
+    if bn.group is not None:
+        both = all_reduce_sum(torch.stack([s, ss]), bn.group)
+        s, ss = both[0], both[1]
+        count *= dist.get_world_size(bn.group)
     mean, var = _stats_from_sums(s, ss, count)
     bn._refresh(mean.detach(), var.detach())
     return mean, var

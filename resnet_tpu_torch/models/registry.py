@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from resnet_tpu_torch.config import DTYPES, Config, ModelConfig
 from resnet_tpu_torch.models.resnet import (
@@ -40,9 +41,12 @@ def model_spec(m: ModelConfig, num_classes: int):
 
 
 def get_model(cfg: Config,
-              generator: Optional[torch.Generator] = None) -> ResNet:
+              generator: Optional[torch.Generator] = None,
+              bn_group=None) -> ResNet:
     """Build and initialize the configured model on the CPU; the init draws
-    from ``generator``, by default one seeded with ``cfg.train.seed``."""
+    from ``generator``, by default one seeded with ``cfg.train.seed``.
+    ``bn_group``: a ``torch.distributed`` process group over which every
+    BatchNorm takes global-batch statistics (``dp_mode="jit"``)."""
     m, t = cfg.model, cfg.train
     units, filters, bottleneck, cifar = model_spec(m, cfg.data.num_classes)
     if t.bn_grouped and t.bn_subsample <= 1:
@@ -76,6 +80,17 @@ def get_model(cfg: Config,
             "--bn-stat-stride > 1 or --remat-policy conv (the chain "
             "computes full-batch BN stats in-kernel); drop one of the "
             "flags")
+    if (bn_group is not None and dist.get_world_size(bn_group) > 1
+            and (t.fused_convbn or t.unit_chain == "pallas")):
+        # the JAX package's kernels of these paths have no partitioning
+        # rule: GSPMD cannot partition their Mosaic kernels, so the pair
+        # does not compile on the TPU. The xla chain (separate ops) runs,
+        # with global statistics (models/chain.py)
+        raise ValueError(
+            "--fused-convbn and --unit-chain pallas do not run under "
+            "--dp-mode jit over more than one device (their kernels "
+            "cannot be partitioned); use --dp-mode shard_map (per-replica "
+            "BN), --unit-chain xla, or drop the flag")
     if generator is None:
         generator = torch.Generator().manual_seed(t.seed)
     return ResNet(units=units, filters=filters,
@@ -91,4 +106,4 @@ def get_model(cfg: Config,
                   grouped_dense=t.grouped_dense,
                   grouped_merge=t.grouped_merge, remat=t.remat,
                   remat_policy=t.remat_policy, pool_grad=t.pool_grad,
-                  generator=generator)
+                  bn_group=bn_group, generator=generator)

@@ -27,12 +27,14 @@ from functools import partial
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from resnet_tpu_torch.ops.pool import stem_max_pool
+from resnet_tpu_torch.parallel.dist import all_reduce_sum
 
 # Depth -> per-stage unit counts (ref:symbol/resnet.py depth table)
 IMAGENET_UNITS = {
@@ -225,13 +227,23 @@ class BatchNorm(nn.Module):
     Under remat (:func:`remat_unit`) a unit's forward runs twice; the
     second run, the recomputation, refreshes nothing and reads the running
     statistics the first run read (``remat_pass``).
+
+    ``group`` (a ``torch.distributed`` process group whose ranks each hold
+    a contiguous block of one global batch, rank order = batch order):
+    train-mode statistics over the GLOBAL batch, every mode above as the
+    JAX model computes it over the whole sharded batch (``dp_mode="jit"``,
+    ``sync_bn``). Each rank's share of E[x] and E[x²] is summed across the
+    group in float32 by a differentiable all-reduce, so the backward
+    reduces too; a rank that holds none of the stat sample adds zeros.
+    Without a group nothing changes.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 2e-5, ema: bool = False,
                  ema_clamp: float = 1.0, subsample: int = 1,
                  grouped: bool = False, stat_stride: int = 1,
-                 dtype=torch.float32, use_scale: bool = True):
+                 dtype=torch.float32, use_scale: bool = True,
+                 group=None):
         super().__init__()
         if use_scale:
             self.weight = nn.Parameter(torch.ones(features))
@@ -244,6 +256,7 @@ class BatchNorm(nn.Module):
         self.ema, self.ema_clamp, self.dtype = ema, ema_clamp, dtype
         self.subsample, self.grouped = subsample, grouped
         self.stat_stride = stat_stride
+        self.group = group
         self.remat_pass: Optional[RematPass] = None
 
     def _scaled(self, inv):
@@ -295,19 +308,77 @@ class BatchNorm(nn.Module):
             * inv[:, None, :, None, None] + self.bias[:, None, None]
         return out.reshape(xf.shape).to(self.dtype)
 
+    def _global_moments(self, xf, detach_sq: bool):
+        """(E[x], E[x²]) per channel over the global stat sample: the
+        leading ``max(1, N // subsample)`` images of the global batch of
+        ``N``, strided. Each rank weights the moments of its part by its
+        share of the sample; at world size 1 the weight is exactly 1, so
+        the moments are the local path's bit for bit."""
+        world = dist.get_world_size(self.group)
+        rank = dist.get_rank(self.group)
+        n = xf.shape[0]
+        k = max(1, n * world // self.subsample)
+        mine = min(max(k - rank * n, 0), n)
+        xs = self._strided(xf[:mine] if mine < n else xf)
+        dims = (0, 2, 3)
+        if mine:
+            m1 = xs.mean(dims) * (mine / k)
+            m2 = (xs * xs).mean(dims) * (mine / k)
+        else:
+            # zeros that still reach this rank's graph: every rank must
+            # join the backward's all-reduce
+            m1, m2 = xs.sum(dims), (xs * xs).sum(dims)
+        both = all_reduce_sum(torch.stack([m1, m2.detach() if detach_sq
+                                           else m2]), self.group)
+        return both[0], both[1]
+
+    def _global_grouped_forward(self, xf):
+        """``grouped`` over the global batch: ``min(subsample, N)``
+        contiguous groups of the global batch, which may span ranks."""
+        world = dist.get_world_size(self.group)
+        rank = dist.get_rank(self.group)
+        n = xf.shape[0]
+        g = min(self.subsample, n * world)
+        if (n * world) % g:
+            raise ValueError(f"grouped BN: global batch {n * world} not "
+                             f"divisible by {g} groups")
+        size = n * world // g
+        ss = self._strided(xf)
+        gid = (rank * n + torch.arange(n, device=xf.device)) // size
+        onehot = (gid[None, :] == torch.arange(g, device=xf.device)[:, None]
+                  ).float() / size                             # (g, n)
+        both = all_reduce_sum(torch.cat([onehot @ ss.mean((2, 3)),
+                                         onehot @ (ss * ss).mean((2, 3))]),
+                              self.group)
+        gmean = both[:g]                                       # (g, C)
+        gvar = (both[g:] - gmean * gmean).clamp_min(0.0)
+        self._refresh(gmean.detach().mean(0), gvar.detach().mean(0))
+        inv = self._scaled(torch.rsqrt(gvar + self.eps))
+        out = (xf - gmean[gid][:, :, None, None]) \
+            * inv[gid][:, :, None, None] + self.bias[:, None, None]
+        return out.to(self.dtype)
+
     def forward(self, x):
         dims = (0, 2, 3)
         xf = x.float()
+        sync = self.group is not None
         if not self.training:
             mean, var = self.running_mean, self.running_var
         elif self.grouped and self.subsample > 1:
-            return self._grouped_forward(xf)
+            return (self._global_grouped_forward(xf) if sync
+                    else self._grouped_forward(xf))
         elif self.ema:
-            xs = self._stat_sample(xf)
-            bmean_g = xs.mean(dims)
-            bmean = bmean_g.detach()
-            xs = xs.detach()
-            bvar = ((xs * xs).mean(dims) - bmean * bmean).clamp_min(0.0)
+            if sync:
+                bmean_g, bsq = self._global_moments(xf, detach_sq=True)
+                bmean = bmean_g.detach()
+                bsq = bsq.detach()
+            else:
+                xs = self._stat_sample(xf)
+                bmean_g = xs.mean(dims)
+                bmean = bmean_g.detach()
+                xs = xs.detach()
+                bsq = (xs * xs).mean(dims)
+            bvar = (bsq - bmean * bmean).clamp_min(0.0)
             mean, var = self._pre_step_stats()
             if self.ema_clamp > 0:
                 c2 = self.ema_clamp * self.ema_clamp
@@ -319,9 +390,13 @@ class BatchNorm(nn.Module):
             self._refresh(bmean, bvar)
             mean = bmean_g + (mean - bmean)
         else:
-            xs = self._stat_sample(xf)
-            mean = xs.mean(dims)
-            var = ((xs * xs).mean(dims) - mean * mean).clamp_min(0.0)
+            if sync:
+                mean, sq = self._global_moments(xf, detach_sq=False)
+            else:
+                xs = self._stat_sample(xf)
+                mean = xs.mean(dims)
+                sq = (xs * xs).mean(dims)
+            var = (sq - mean * mean).clamp_min(0.0)
             self._refresh(mean.detach(), var.detach())
         inv = self._scaled(torch.rsqrt(var + self.eps))
         out = (xf - mean[:, None, None]) * inv[:, None, None] \
@@ -519,6 +594,9 @@ class ResNet(nn.Module):
     ``remat``: every residual unit runs under ``remat_unit`` in training;
     else ``remat_policy="conv"``, the selective form.
 
+    ``bn_group``: every BatchNorm takes its train-mode statistics over the
+    global batch of that process group (``BatchNorm``'s ``group``).
+
     Input is NHWC: (N, H, W, 3) images, or (N, H/2, W/2, 12) blocks from
     the s2d augmenter, which need ``stem_s2d`` and a v1 ImageNet net.
     Units are registered as ``stage{S}_unit{U}``, the reference's names.
@@ -536,6 +614,7 @@ class ResNet(nn.Module):
                  cifar_stem: bool = False, grouped_dense: bool = False,
                  grouped_merge: int = 0, remat: bool = False,
                  remat_policy: str = "none", pool_grad: str = "sas",
+                 bn_group=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if remat_policy not in ("none", "conv"):
@@ -550,7 +629,7 @@ class ResNet(nn.Module):
         bn_kw = dict(momentum=bn_mom, eps=bn_eps, ema=bn_ema,
                      ema_clamp=bn_ema_clamp, subsample=bn_subsample,
                      grouped=bn_grouped, stat_stride=bn_stat_stride,
-                     dtype=dtype)
+                     dtype=dtype, group=bn_group)
         if version == 2:
             self.bn_data = BatchNorm(3, use_scale=False, **bn_kw)
         if cifar_stem:

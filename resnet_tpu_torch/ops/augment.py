@@ -383,20 +383,35 @@ def sample_cifar_rows(generator: torch.Generator, cfg: DataConfig, n: int,
     return torch.stack([off[0], off[1], flip, alpha, beta], dim=1)
 
 
+def replica_draw(n: int, replica: Optional[Tuple[int, int]]):
+    """(rows to draw, this replica's block of them): with ``replica`` =
+    (rank, world), the global batch's ``n·world`` rows, of which the
+    rank's block is this batch's; without, ``n`` and all of them. Per-image
+    values are elementwise in their draws, so the block equals what a draw
+    over the global batch gives those images."""
+    if replica is None:
+        return n, slice(None)
+    rank, world = replica
+    return n * world, slice(rank * n, (rank + 1) * n)
+
+
 def augment_cifar(images_u8: torch.Tensor, generator: Optional[torch.Generator],
                   cfg: DataConfig, dtype=torch.float32,
-                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  rows: Optional[torch.Tensor] = None,
+                  replica: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(N,H,W,3) uint8 -> augmented, normalized (N,H,W,3) ``dtype``: pad
     by ``cfg.pad`` with ``cfg.fill_value``, crop
     H x W at (dy, dx), mirror, then ``finish_normalize`` with the contrast
     and illumination jitters when configured. The per-image values come
     from ``rows`` ((N, 5): dy, dx, flip, alpha, beta) or are drawn from
-    ``generator``."""
+    ``generator``, for the global batch when ``replica`` = (rank, world)
+    is given (``replica_draw``)."""
     n, h, w, _ = images_u8.shape
     dev = images_u8.device
     pad = int(cfg.pad)
     if rows is None:
-        rows = sample_cifar_rows(generator, cfg, n, device=dev)
+        n_draw, mine = replica_draw(n, replica)
+        rows = sample_cifar_rows(generator, cfg, n_draw, device=dev)[mine]
     dy, dx, flip, alpha, beta = rows.unbind(1)
     padded = torch.nn.functional.pad(
         images_u8, (0, 0, pad, pad, pad, pad), value=int(cfg.fill_value))

@@ -27,8 +27,9 @@ from resnet_tpu_torch.config import DTYPES, Config, DataConfig
 from resnet_tpu_torch.ops.augment import (_rgb_to_hsl_adjust,
                                           augment_cifar,
                                           crop_resize_bilinear,
-                                          finish_normalize, rotate_images,
-                                          sample_boxes_canvas, sample_rotate)
+                                          finish_normalize, replica_draw,
+                                          rotate_images, sample_boxes_canvas,
+                                          sample_rotate)
 
 ROW_LEN = 12
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -261,7 +262,8 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
                            plain: bool = False,
                            split: bool = False,
                            warp: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
+                                                torch.Tensor]] = None,
+                           replica: Optional[Tuple[int, int]] = None
                            ) -> torch.Tensor:
     """Train-time ImageNet augmentation through the fused kernel: MXNet
     random-resized-crop boxes (full-image domain when ``dims`` gives the
@@ -279,25 +281,33 @@ def augment_imagenet_fused(canvas_u8: torch.Tensor,
     with identity normalization into float32 and the photometric steps run
     after it as plain ops; without a photometric jitter this is the fused
     launch.
+    ``replica`` = (rank, world): the values drawn are the global batch's
+    (``ops/augment.py::replica_draw``); the images' own ``dims`` stand in
+    for the other ranks', whose values are dropped.
     """
     n, hc, wc, _ = canvas_u8.shape
     dev = canvas_u8.device
     rotate = cfg.max_rotate_angle > 0 or cfg.max_shear_ratio > 0
+    n_draw, mine = replica_draw(n, replica)
     if rows is None:
-        boxes = sample_boxes_canvas(generator, cfg, n, hc, wc, out_hw, dims,
-                                    device=dev)
-        flip = (torch.rand((n,), generator=generator, device=dev) < 0.5
+        d_all = (dims if dims is None or n_draw == n
+                 else dims.repeat(n_draw // n, 1))
+        boxes = sample_boxes_canvas(generator, cfg, n_draw, hc, wc, out_hw,
+                                    d_all, device=dev)
+        flip = (torch.rand((n_draw,), generator=generator, device=dev) < 0.5
                 if cfg.rand_mirror else None)
-        valid = (dims[:, 2], dims[:, 3]) if dims is not None else None
-        ph = sample_photometric(generator, cfg, n, device=dev)
-        rows = augment_rows(boxes, flip, valid, ph, n, (hc, wc), device=dev)
+        valid = (d_all[:, 2], d_all[:, 3]) if dims is not None else None
+        ph = sample_photometric(generator, cfg, n_draw, device=dev)
+        rows = augment_rows(boxes, flip, valid, ph, n_draw, (hc, wc),
+                            device=dev)[mine].contiguous()
     hsl = bool(cfg.random_h or cfg.random_s or cfg.random_l)
     contrast = cfg.max_random_contrast > 0
     illum = cfg.max_random_illumination > 0
     norm = (cfg.mean_rgb, cfg.std_rgb, dtype)
     if rotate:
         if warp is None:
-            warp = sample_rotate(generator, cfg, n, device=dev)
+            warp = tuple(v[mine] for v in sample_rotate(
+                generator, cfg, n_draw, device=dev))
         return _crop_normalize_plain(rotate_images(canvas_u8, *warp), rows,
                                      out_hw, *norm, s2d, hsl, contrast,
                                      illum)
@@ -319,12 +329,14 @@ def make_augment_fn(cfg: Config) -> Callable:
     layout when ``aug_s2d``, through the kernel unless
     ``augment_impl="xla"`` selects the plain version
     (``"pallas-split"``: the split photometric form). Returns
-    ``f(canvas_u8, generator, dims=None, rows=None)``."""
+    ``f(canvas_u8, generator, dims=None, rows=None, replica=None)``."""
     dtype = DTYPES[cfg.train.dtype]
     d = cfg.data
     if cfg.model.dataset == "cifar10":
-        def cifar_fn(images_u8, generator, dims=None, rows=None):
-            return augment_cifar(images_u8, generator, d, dtype, rows=rows)
+        def cifar_fn(images_u8, generator, dims=None, rows=None,
+                     replica=None):
+            return augment_cifar(images_u8, generator, d, dtype, rows=rows,
+                                 replica=replica)
         return cifar_fn
     out_hw = tuple(d.image_shape[:2])
     s2d = cfg.train.aug_s2d
@@ -337,8 +349,10 @@ def make_augment_fn(cfg: Config) -> Callable:
     plain = d.augment_impl == "xla"
     split = d.augment_impl == "pallas-split"
 
-    def augment_fn(canvas_u8, generator, dims=None, rows=None):
+    def augment_fn(canvas_u8, generator, dims=None, rows=None,
+                   replica=None):
         return augment_imagenet_fused(canvas_u8, generator, d, out_hw,
                                       dtype, dims=dims, s2d=s2d, rows=rows,
-                                      plain=plain, split=split)
+                                      plain=plain, split=split,
+                                      replica=replica)
     return augment_fn

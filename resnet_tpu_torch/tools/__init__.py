@@ -1,1 +1,2 @@
-"""The port's probe tools, run as ``python -m resnet_tpu_torch.tools.<name>``."""
+"""The port's tools (the probes and the launcher), run as ``python -m
+resnet_tpu_torch.tools.<name>``."""

@@ -1,5 +1,5 @@
 """Solver: the fit loop (ref:core/solver.py Solver.fit / mx Module.fit).
-Port of ``resnet_tpu/train/solver.py`` for one device.
+Port of ``resnet_tpu/train/solver.py``.
 
 The host loop pulls prefetched batches (K stacked per call), fires the
 K-step train call, and reads the metric sums off the device only every
@@ -13,6 +13,14 @@ the model's ``BatchNorm`` modules to bn-ema at the next dispatch
 boundary. The mode is a pure function of (config, step), so a resume on
 either side of the switch lands in the same mode. The radial projection
 of the update stays on throughout, as in the JAX package.
+
+Data parallelism: inside a process group (``parallel/dist.py``, one
+process a device, started by ``tools/launch.py``) every rank runs this
+loop on its share of the data with the step of ``dp_mode``/``dp_sync``
+(``train/steps.py``). Rank 0 alone logs below warnings, writes the
+metrics file and the checkpoints; barriers around init, the loop and each
+checkpoint keep any rank from reading a file being written. Every rank
+loads on resume. Validation adds up each rank's sums once at the end.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import glob
+import logging
 import os
 import re
 import signal
@@ -28,6 +37,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from resnet_tpu_torch.config import DTYPES, Config, require_ported
 from resnet_tpu_torch.data.loader import DataIter
@@ -36,12 +46,15 @@ from resnet_tpu_torch.models.resnet import BatchNorm
 from resnet_tpu_torch.ops.augment import eval_center_crop, normalize
 from resnet_tpu_torch.ops.augment_fused import make_augment_fn
 from resnet_tpu_torch.ops.metrics import MetricAccumulator
+from resnet_tpu_torch.parallel.dist import (barrier, check_equal,
+                                            is_primary, local_device,
+                                            proc_info, world_group)
+from resnet_tpu_torch.parallel.mesh import check_num_devices
 from resnet_tpu_torch.train import checkpoint as ckpt
 from resnet_tpu_torch.train.callback import BatchEndParam, Speedometer
 from resnet_tpu_torch.train.schedule import schedule_from_config
 from resnet_tpu_torch.train.state import TrainState, create_train_state
 from resnet_tpu_torch.train.steps import eval_step, make_train_step
-from resnet_tpu_torch.utils.device import resolve_device
 from resnet_tpu_torch.utils.export import load_mxnet_checkpoint
 from resnet_tpu_torch.utils.logging import setup_logging
 from resnet_tpu_torch.utils.metric_writer import MetricWriter
@@ -103,15 +116,54 @@ def latest_params_epoch(model_prefix: str) -> Optional[int]:
 
 class Solver:
     """fit(train_iter, eval_iter) driver (ref:core/solver.py).
-    ``device=None`` means the CUDA card."""
+    ``device=None`` means the CUDA card (this rank's, in a process
+    group)."""
 
     def __init__(self, cfg: Config, device=None,
                  log_file: Optional[str] = None):
         require_ported(cfg)
         self.log = setup_logging(log_file)
-        self.device = resolve_device(device)
-        self.cfg = cfg
+        world, rank = proc_info()
+        if rank != 0:
+            # head-node-only logging (ref: dist workers log on rank 0)
+            self.log.setLevel(logging.WARNING)
+        self.device = local_device(device)
+        self.group = world_group()
         t = cfg.train
+        n_dev = check_num_devices(t.num_devices, world)
+        if t.batch_size % n_dev:
+            raise ValueError(
+                f"batch_size {t.batch_size} not divisible by {n_dev} devices")
+        if t.sync_bn and t.dp_mode == "shard_map":
+            # jit mode computes BN over the GLOBAL batch (sync-BN); the
+            # shard_map path is the MXNet-parity per-replica BN
+            raise ValueError(
+                "sync_bn requires --dp-mode jit (global-batch BN); "
+                "--dp-mode shard_map is per-replica BN like MXNet per-GPU")
+        multi_jit = self.group is not None and t.dp_mode == "jit" \
+            and n_dev > 1
+        if multi_jit and cfg.data.augment_impl.startswith("pallas"):
+            # the JAX package's rule: its Mosaic kernel cannot be
+            # partitioned by GSPMD. Under "auto" K1 runs on each rank's
+            # block with the global batch's draws
+            raise ValueError(
+                "augment_impl='pallas' cannot run under GSPMD jit on a "
+                "multi-device mesh (Mosaic kernels cannot be automatically "
+                "partitioned); use --dp-mode shard_map or "
+                "--augment-impl xla (bit-identical)")
+        if t.bn_subsample > 1 and t.dp_mode == "shard_map" and n_dev > 1:
+            # bn_subsample counts sub-batches of the PER-REPLICA batch;
+            # keep the intended absolute sample (batch/s images) by
+            # rescaling, in this Solver's own copy of the config
+            eff = max(1, t.bn_subsample // n_dev)
+            self.log.info(
+                "bn_subsample %d -> %d under %d-way shard_map "
+                "(per-replica batches)", t.bn_subsample, eff, n_dev)
+            cfg = cfg.replace(train=dataclasses.replace(t, bn_subsample=eff))
+            t = cfg.train
+        self.cfg = cfg
+        # global-batch BatchNorm statistics under jit
+        self._bn_group = self.group if t.dp_mode == "jit" else None
         self._sigterm = False
         self.iter_state = {}
         self.begin_epoch = t.begin_epoch
@@ -120,8 +172,14 @@ class Solver:
         self._bn_ema_pending = False
         self._spd = max(1, t.steps_per_dispatch)
         aug_fn = make_augment_fn(device_augment_config(cfg))
+        comm_dtype = (torch.bfloat16 if t.dp_comm_dtype == "bfloat16"
+                      else None)
+        # an epoch tail's one-step call keeps dp_sync's cadence: at k=1
+        # dispatch-sync is step-sync (train/steps.py)
         self._mk_step = lambda k: make_train_step(
-            t.label_smooth, augment_fn=aug_fn, steps_per_dispatch=k)
+            t.label_smooth, augment_fn=aug_fn, steps_per_dispatch=k,
+            group=self.group, dp_mode=t.dp_mode, comm_dtype=comm_dtype,
+            dp_sync=t.dp_sync)
         self.train_step = self._mk_step(self._spd)
         self._single_step = self.train_step if self._spd == 1 else None
         self.eval_step = functools.partial(eval_step,
@@ -132,7 +190,8 @@ class Solver:
         self.speedometer = Speedometer(t.batch_size, t.frequent,
                                        auto_reset=True)
         self.metric_writer = MetricWriter(
-            f"{t.model_prefix}.metrics.jsonl" if t.model_prefix else None)
+            f"{t.model_prefix}.metrics.jsonl"
+            if t.model_prefix and rank == 0 else None)
         self.last_train_metrics: Dict[str, float] = {}
 
     # -- state ------------------------------------------------------------
@@ -143,7 +202,9 @@ class Solver:
         ``{prefix}-NNNN.params`` (momentum zero, ``step = epoch ×
         steps_per_epoch``, the reference's own resume)."""
         t = self.cfg.train
-        state = create_train_state(self.cfg, device=self.device)
+        barrier("resnet_tpu:init")
+        state = create_train_state(self.cfg, device=self.device,
+                                   bn_group=self._bn_group)
         self.begin_epoch = t.begin_epoch
         self.iter_state = {}
         load_epoch = t.load_epoch
@@ -237,12 +298,18 @@ class Solver:
             if self._sigterm:
                 # save the exact position (state + data cursor) and exit;
                 # a relaunch with --auto-resume replays the identical
-                # remaining stream
-                if t.model_prefix:
+                # remaining stream. With more than one rank the save
+                # would wait at a barrier for ranks that may never come:
+                # exit at once, and recovery resumes from the last
+                # checkpoint all ranks wrote
+                if t.model_prefix and proc_info()[0] == 1:
                     self._save_mid_epoch(state, train_iter, epoch, nbatch)
-                self.log.warning(
-                    "SIGTERM: checkpointed epoch %d batch %d; exiting",
-                    epoch, nbatch)
+                    self.log.warning(
+                        "SIGTERM: checkpointed epoch %d batch %d; exiting",
+                        epoch, nbatch)
+                else:
+                    self.log.warning("SIGTERM at epoch %d batch %d: exiting "
+                                     "without a checkpoint", epoch, nbatch)
                 raise SystemExit(143)
             if nbatch // t.frequent > prev_nbatch // t.frequent:
                 # the only read of the device in the loop
@@ -272,10 +339,19 @@ class Solver:
                  epoch: int) -> dict:
         """Running-stats eval over one pass of ``eval_iter``; padded
         examples are masked out."""
-        sums = [self.eval_step(state, batch) for batch in prefetch_to_device(
-            eval_iter.epoch_iter(0), size=2, device=self.device)]
+        sums = _pull([self.eval_step(state, batch) for batch in
+                      prefetch_to_device(eval_iter.epoch_iter(0), size=2,
+                                         device=self.device)])
+        if self.group is not None:
+            # one reduction for the pass: ranks may hold different numbers
+            # of val batches
+            total = torch.tensor([[sum(m[k] for m in sums)
+                                   for k in _SUM_KEYS]],
+                                 dtype=torch.float64, device=self.device)
+            dist.all_reduce(total, group=self.group)
+            sums = [dict(zip(_SUM_KEYS, total[0].tolist()))]
         acc = MetricAccumulator()
-        for m in _pull(sums):
+        for m in sums:
             acc.update(m)
         m = acc.get()
         self.metric_writer.write("val", epoch, -1, m)
@@ -293,10 +369,17 @@ class Solver:
         (``epoch``), with the consumed position inside the epoch in the
         iterator state, so ``--auto-resume`` restarts at ``epoch`` and the
         iterator seeks to the exact batch."""
-        ckpt.save_checkpoint(self.cfg.train.model_prefix, epoch, state,
-                             iter_state=train_iter.cursor_state(nbatch))
+        self._save(epoch, state, train_iter.cursor_state(nbatch))
         self.log.info("Saved mid-epoch checkpoint (epoch %d, batch %d)",
                       epoch, nbatch)
+
+    def _save(self, epoch: int, state: TrainState, iter_state: dict) -> None:
+        """Rank 0 writes the checkpoint (the replicas hold one state);
+        every rank waits until the file is whole."""
+        if is_primary():
+            ckpt.save_checkpoint(self.cfg.train.model_prefix, epoch, state,
+                                 iter_state=iter_state)
+        barrier("resnet_tpu:checkpoint")
 
     def fit(self, train_iter: DataIter,
             eval_iter: Optional[DataIter] = None,
@@ -314,6 +397,11 @@ class Solver:
             warm = self._host_step < self._bn_ema_switch
             self._set_bn_mode(state.model, warmup=warm)
             self._bn_ema_pending = warm
+        # ranks that ran different numbers of steps would hang in a
+        # collective
+        check_equal(train_iter.steps_per_epoch, "steps per epoch",
+                    self.device)
+        barrier("resnet_tpu:fit")
 
         # SIGTERM -> one final mid-epoch save, then exit 143. The handler
         # only flips a flag; the save happens at a batch boundary in
@@ -357,6 +445,5 @@ class Solver:
         if eval_iter is not None:
             self.validate(state, eval_iter, epoch)
         if t.model_prefix:
-            ckpt.save_checkpoint(t.model_prefix, epoch + 1, state,
-                                 iter_state=train_iter.state_dict())
+            self._save(epoch + 1, state, train_iter.state_dict())
         return state

@@ -34,14 +34,17 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, device=None,
-                       model: Optional[ResNet] = None) -> TrainState:
+                       model: Optional[ResNet] = None,
+                       bn_group=None) -> TrainState:
     """Build the model (MSRA init from ``cfg.train.seed``, or ``model`` as
     given), move it to ``device`` in ``channels_last`` memory, and set up
     MXNet SGD with the configured schedule; bn-ema adds the radial
-    projection. ``device=None`` means the CUDA card."""
+    projection. ``device=None`` means the CUDA card. ``bn_group``: the
+    process group of global-batch BatchNorm statistics
+    (``models/registry.py::get_model``)."""
     device = resolve_device(device)
     if model is None:
-        model = get_model(cfg)
+        model = get_model(cfg, bn_group=bn_group)
     model = model.to(device=device, memory_format=torch.channels_last)
     t = cfg.train
     tx = MXNetSGD(schedule_from_config(cfg), momentum=t.mom,

@@ -2,9 +2,10 @@
 every field both configs have must be equal after parsing the same argv,
 every preset must equal the JAX preset, and a switch the port does not
 have yet must raise ``NotImplementedError`` naming its ROADMAP item. The
-switches of ROADMAP items 11 and 14 (the model family, remat, the pool
-backward, the warps, the split augmenter) are ported: they parse as the
-JAX package parses them."""
+switches of ROADMAP items 11, 14 and 15 (the model family, remat, the
+pool backward, the warps, the split augmenter, data parallelism) are
+ported: they parse as the JAX package parses them, more than one device
+inside the launcher's environment only."""
 
 import dataclasses
 
@@ -76,7 +77,7 @@ def test_every_jax_flag_is_accepted():
 
 
 # the ROADMAP items whose switches the port has
-PORTED_ITEMS = (11, 14)
+PORTED_ITEMS = (11, 14, 15)
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -94,11 +95,17 @@ PORTED_ITEMS = (11, 14)
     (["--augment-impl", "pallas-split"], 14),
     (["--xla-opts", "xla_cpu_enable_fast_math=true"], 17),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
-def test_unported_switch_raises(argv, item):
+def test_unported_switch_raises(argv, item, monkeypatch):
     """A switch of an item still to port raises, naming the item; one of a
-    ported item (11, 14) parses to the JAX package's config."""
+    ported item (11, 14, 15) parses to the JAX package's config; item 15's
+    more than one device only with the launcher's rendezvous set."""
     want = jax_config.parse_config(argv)   # the JAX package accepts it
     if item in PORTED_ITEMS:
+        if item == 15:
+            monkeypatch.delenv(config.ENV_COORD, raising=False)
+            with pytest.raises(ValueError, match="tools.launch"):
+                config.parse_config(argv)
+            monkeypatch.setenv(config.ENV_COORD, "127.0.0.1:1")
         _assert_same(config.parse_config(argv), want)
         return
     with pytest.raises(NotImplementedError,
@@ -106,9 +113,12 @@ def test_unported_switch_raises(argv, item):
         config.parse_config(argv)
 
 
-def test_solver_refuses_unported_presets():
+def test_solver_refuses_unported_presets(monkeypatch):
+    """Every preset is ported; imagenet_resnet152_dp's 16 devices need 16
+    processes, which only the launcher starts."""
     from resnet_tpu_torch.train.solver import Solver
-    with pytest.raises(NotImplementedError, match="item 15"):
+    monkeypatch.delenv(config.ENV_COORD, raising=False)
+    with pytest.raises(ValueError, match="tools.launch -n 16"):
         Solver(config.PRESETS["imagenet_resnet152_dp"](), device="cpu")
     for name in ("imagenet_resnet50", "imagenet_resnet101_bf16",
                  "cifar10_resnet18", "imagenet_resnext50"):

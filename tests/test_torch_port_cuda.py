@@ -833,3 +833,53 @@ def test_rotate_images_on_the_card_matches_cpu(cuda):
     want = rotate_images(images, angles, shears)
     got = rotate_images(images.to(cuda), angles.to(cuda), shears.to(cuda))
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dp_mode", ["shard_map", "jit"])
+def test_world_size_1_nccl_step_equals_the_plain_step(cuda, dp_mode,
+                                                      monkeypatch):
+    """One rank joined over NCCL: the data-parallel step (its reductions
+    over one rank, its weights exactly 1) equals the plain step from the
+    same seeded state bit for bit, on deterministic cuDNN."""
+    import torch.distributed as dist
+    from resnet_tpu_torch.config import cifar10_resnet18
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.parallel.dist import (maybe_init_distributed,
+                                                world_group)
+    from resnet_tpu_torch.tools.launch import ENV_KEYS, free_port
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    for key, value in zip(ENV_KEYS, (f"127.0.0.1:{free_port()}", "1", "0")):
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    assert maybe_init_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        group = world_group()
+        cfg = cifar10_resnet18()
+        cfg.model.depth, cfg.train.batch_size = 8, 16
+        g = torch.Generator(device=cuda).manual_seed(0)
+        batch = {"image": torch.randint(0, 256, (16, 32, 32, 3), generator=g,
+                                        device=cuda, dtype=torch.uint8),
+                 "label": torch.randint(0, 10, (16,), generator=g,
+                                        device=cuda)}
+        runs = []
+        for dp in (False, True):
+            state = create_train_state(
+                cfg, device=cuda,
+                bn_group=group if dp and dp_mode == "jit" else None)
+            step = make_train_step(augment_fn=make_augment_fn(cfg),
+                                   group=group if dp else None,
+                                   dp_mode=dp_mode)
+            runs.append(step(state, batch))
+        (plain, m_plain), (st, m) = runs
+        for k in m:
+            assert torch.equal(m[k], m_plain[k]), k
+        for a, b in zip([*st.model.parameters(), *st.momentum,
+                         *st.model.buffers()],
+                        [*plain.model.parameters(), *plain.momentum,
+                         *plain.model.buffers()]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -77,6 +77,20 @@ STATE_L2 = 1e-2
 N_EXAMPLES, BATCH, HW = 40, 8, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_intra_op_threads():
+    """Two intra-op threads for the module, then the process's setting
+    again. The fit loop runs torch ops on its main and prefetch threads at
+    once; at the default width (one thread a core) and with other
+    processes busy on the cores, they stall: on an 8-core host with six
+    busy processes, the ResNeXt-50 case of test_torch_port_cli.py took
+    115 s, and 8 s at two threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(cfg, prefix):
     d, m, t = cfg.data, cfg.model, cfg.train
     d.num_classes, d.num_examples, d.image_shape = 10, N_EXAMPLES, (HW, HW, 3)
