@@ -22,16 +22,26 @@ runs ``python -m resnet_tpu_torch.train_resnet``'s ``main`` at the preset
 (2 epochs of in-memory data with validation and checkpoints, the bn-ema
 switch inside; its img/s beside ``main_path``'s is the fit loop's input
 overhead, and CUDA events around its train calls give the device's idle
-share), ``fit_params`` round-trips its checkpoint through an MXNet
-``.params`` file, ``fit_resume`` SIGTERMs a real CLI process mid-epoch
-and resumes it (all four processes on deterministic algorithms, through
-``--deterministic-train``, so that the resumed run can be held bit for
-bit), and ``prefetch_check`` holds the side-stream prefetch
-against the host batches. Each
-phase prints one JSON line; a failed check raises and the script exits
-non-zero. The last lines are the kernels line, the card's ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or of the JAX package.
+share), and ``fit_params`` round-trips its checkpoint through an MXNet
+``.params`` file. The phases that time nothing run side by side, before
+the child processes: ``fit_resume`` SIGTERMs a real CLI process
+mid-epoch and resumes it (all four processes on deterministic
+algorithms, through ``--deterministic-train``, so that the resumed run
+can be held bit for bit), and ``dp_reference`` and ``dryrun`` start
+their rank processes, each from a thread, while this thread runs the
+float32 reference steps and ``prefetch_check``, which holds the
+side-stream prefetch against the host batches. ``serve``, after
+``fit_path`` in its process, takes its epoch-2 checkpoint (ResNet-50 at full width) through the
+deployment path: the ``-symbol.json`` the fit wrote, ``export_mxnet``,
+``predict`` on PNG and ``.rec`` requests, ``validate``, ``serve_export
+--check`` (symbolic, pinned, and a two-device artifact this card must
+refuse) and ``bench_serving`` at batch 256. Each phase prints JSON
+lines, each with ``seconds`` (since the phase began, unless the line
+times a step of its own), and a ``timing`` line gives every phase's
+seconds; a failed check raises and the script exits non-zero. The last
+lines are the kernels line, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+of the JAX package.
 
 The augmentation kernel (K1) has two phases: ``k1`` holds it against
 its plain version (``k1_check``, ``k1_s2d_regroup``) and times the main
@@ -50,8 +60,8 @@ the CPU path; the device rotate/shear warp against the CPU's, with K1
 launching no time on its path (``rotate_check``); the train calls of
 ResNeXt-50 32x4d at its preset, block-diagonal (``resnext_path``) and
 through cuDNN's grouped convolution (``resnext_grouped_path``), of the
-CIFAR ResNet-18 preset (``cifar_path``) and of ResNet-152 at the per-device
-share of ``imagenet_resnet152_dp`` with and without remat
+CIFAR ResNet-18 preset (``cifar_path``) and of ``imagenet_resnet152_dp``'s
+per-device share at depth 50 (``DP_DEPTH``) with and without remat
 (``remat_path``); and K1's split mode (``k1_split_mode``: the kernel at
 identity normalization against its plain version, the split augmenter
 against the fused one, and the preset's path with
@@ -63,7 +73,7 @@ device), and holds a float32 CIFAR ResNet-20's ``jit`` step against one
 step on the global batch, its ``shard_map`` step against the two halves
 averaged, a K=1 ``dispatch`` step against step-sync and bf16
 communication against float32; ``dp_path`` drives
-``imagenet_resnet152_dp`` at its per-replica width (ResNet-152, batch
+``imagenet_resnet152_dp`` at its per-replica width (depth 50, batch
 128, bf16, bn-ema, remat, s2d stem fed by K1, 4 steps a call) through
 ``python -m resnet_tpu_torch.tools.launch -n 1`` over NCCL in both
 ``dp_mode``s, with the collectives a step from a profiled call, holds
@@ -80,7 +90,7 @@ resnext_reference, v2_reference, cifar_reference, mask_pool_reference,
 remat_reference, rotate_check, main, chain, fused, fullbatch, resnext,
 resnext_grouped, cifar, remat, k1_split_mode (after main, for its img/s),
 trace_probe, dp_reference, dp_path (after remat, for its img/s), dryrun,
-mm_timing, fit, fit_resume, prefetch.
+mm_timing, fit, serve (with fit), fit_resume, prefetch.
 """
 
 import argparse
@@ -95,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -128,8 +139,34 @@ AUG_COL_OPS = 18
 TOL = {torch.float32: (5e-2, 1e-4), torch.bfloat16: (5e-2, 2.0 ** -7)}
 
 
+class PhaseClock:
+    """Wall seconds of this process's phases: ``begin`` ends the current
+    phase and starts the next; ``seconds`` is the time since the current
+    one began; ``totals`` holds each ended phase's seconds."""
+
+    def __init__(self):
+        self.name, self.start, self.totals = "start", time.perf_counter(), {}
+
+    def begin(self, name):
+        now = time.perf_counter()
+        self.totals[self.name] = self.totals.get(self.name, 0.0) \
+            + now - self.start
+        self.name, self.start = name, now
+
+    def seconds(self):
+        return time.perf_counter() - self.start
+
+
+CLOCK = PhaseClock()
+
+
 def emit(**fields):
-    print(json.dumps(fields), flush=True)
+    """One JSON line, in one write (``fit_resume`` emits from a thread);
+    ``seconds``, unless given, is the time since the current phase began
+    (so a phase's last line carries its whole time)."""
+    fields.setdefault("seconds", CLOCK.seconds())
+    sys.stdout.write(json.dumps(fields) + "\n")
+    sys.stdout.flush()
 
 
 def nvidia_smi_line():
@@ -1009,23 +1046,30 @@ def profile_call(phase, step, state, batch, images, untraced_ms, steps=1):
     group, and the device's busy share of an untraced call (device time
     over the untraced calls' median wall time; the traced call's own wall
     time carries the tracer's overhead). The per-kernel sums are the
-    profiler module's reading of the exported chrome trace; device time
+    profiler module's reading of the exported (uncompressed) chrome
+    trace; device time
     counts kernels and the copy engines' copies and fills, as the
     profiler's CUDA events did before, and the copies' share is reported
     apart. Collectives a step (of the call's ``steps``): the host's
     all-reduce calls (``c10d::allreduce_`` events) and NCCL's kernels
     and their device ms."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
     from resnet_tpu_torch.utils.profiler import (DEVICE_CATEGORIES,
-                                                 kernel_times, load_trace,
-                                                 maybe_trace, newest_trace)
+                                                 kernel_times, load_trace)
     torch.cuda.synchronize()
     with trace_dir() as logdir:
-        with maybe_trace(logdir):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             tic = time.perf_counter()
             step(state, batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - tic) * 1e3
-        trace = load_trace(newest_trace(logdir))
+        # uncompressed: gzip, which maybe_trace's file name asks for, took
+        # about 5 s a call of this script's 14
+        path = os.path.join(logdir, "call.pt.trace.json")
+        prof.export_chrome_trace(path)
+        trace = load_trace(path)
     total_us, launches = kernel_times(trace, DEVICE_CATEGORIES)
     host_allreduce = sum(1 for e in trace.get("traceEvents", [])
                          if e.get("cat") == "cpu_op"
@@ -1301,22 +1345,38 @@ def resnext_cfg(grouped_dense=True):
     return cfg
 
 
-def remat_path_phase(k1):
-    """ResNet-152, bf16, batch 128, 4 steps a call: the per-device share
-    of the imagenet_resnet152_dp preset (2048 over 16 devices) run with
-    num_devices=1, with remat and without; peak memory and img/s of
-    both."""
+# The imagenet_resnet152_dp preset's per-device share (batch 2048 over 16
+# devices: 128) at this depth in remat_path and dp_path: the preset's
+# widths, bn-ema, remat, s2d stem and K1 at about a third of ResNet-152's
+# time. At depth 152 the two phases took 43 s and 125 s of this script's
+# 600 s budget on an H100.
+DP_DEPTH = 50
+
+
+def dp_preset(**train):
+    """imagenet_resnet152_dp at depth ``DP_DEPTH``, one device, batch 128,
+    with ``train`` set on ``cfg.train``."""
     from resnet_tpu_torch.config import imagenet_resnet152_dp
+    cfg = imagenet_resnet152_dp()
+    cfg.model.depth = DP_DEPTH
+    cfg.train.num_devices, cfg.train.batch_size = 1, BATCH
+    for name, value in train.items():
+        setattr(cfg.train, name, value)
+    return cfg
+
+
+def remat_path_phase(k1):
+    """``dp_preset``: ResNet-50 at the widths of imagenet_resnet152_dp's
+    per-device share, bf16, batch 128, 4 steps a call, with remat and
+    without; peak memory and img/s of both."""
     out = {}
     for remat in (True, False):
-        cfg = imagenet_resnet152_dp()
-        cfg.train.num_devices, cfg.train.batch_size = 1, BATCH
-        cfg.train.remat = remat
         out[remat] = train_path(
-            "remat_path" if remat else "remat_path_off", cfg, 2, {k1: 1},
-            model="resnet152", remat=remat,
-            note="per-device share of imagenet_resnet152_dp (2048/16), "
-                 "num_devices=1")
+            "remat_path" if remat else "remat_path_off",
+            dp_preset(remat=remat), 2, {k1: 1},
+            model=f"resnet{DP_DEPTH}", remat=remat,
+            note=f"per-device share of imagenet_resnet152_dp (2048/16), "
+                 f"num_devices=1, depth {DP_DEPTH}")
     (_, img_on, gib_on), (_, img_off, gib_off) = out[True], out[False]
     emit(phase="remat_summary", img_per_s_remat=img_on,
          img_per_s_no_remat=img_off, peak_gib_remat=gib_on,
@@ -1397,7 +1457,7 @@ def timed_train_calls():
         solver_module.make_train_step = make
 
 
-def fit_path_phase(main_img_s):
+def fit_path_phase(main_img_s, tmp):
     """``train_resnet.main`` at the preset: 2 epochs with a checkpoint and a
     validation pass each; CUDA events around each train call give the
     device's share of the second epoch's wall time (the rest is the host:
@@ -1415,69 +1475,68 @@ def fit_path_phase(main_img_s):
     from resnet_tpu_torch.train.state import create_train_state
     from resnet_tpu_torch.utils.export import save_mxnet_style
     from resnet_tpu_torch.utils.profiler import input_overhead
-    with trace_dir() as tmp:
-        prefix = os.path.join(tmp, "r50")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        k1.launches = 0
-        tic = time.perf_counter()
-        with LogLines() as log, timed_train_calls() as calls:
-            state = train_resnet.main(fit_argv(prefix))
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - tic
-        launches = k1.launches
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        call_ms = [a.elapsed_time(b) for a, b in calls]
-        windows = log.numbers(r"Speed: ([\d.]+) samples/sec")
-        switched = log.numbers(r"bn-ema: warmup done at step (\d+)")
-        epoch_s = log.numbers(r"Epoch\[\d+\] Time cost=([\d.]+)")
-        losses = log.numbers(r"Epoch\[\d+\] Train-cross-entropy=([-\w.]+)")
-        val = log.numbers(r"Epoch\[\d+\] Validation-accuracy=([-\w.]+)")
-        steps = 2 * FIT_EXAMPLES // 128
-        require(state.step == steps, f"fit ended at step {state.step}")
-        require(switched == [12.0], f"bn-ema switched at {switched}")
-        require(len(losses) == 2 and all(map(math.isfinite, losses)),
-                f"epoch losses {losses}")
-        require(len(val) == 2 and len(windows) == 6 and len(call_ms) == 8,
-                f"{val} {windows} {call_ms}")
-        require(launches == steps, f"K1 launched {launches} times in "
-                f"{steps} steps")
-        cfg = config_from_args(build_parser().parse_args(fit_argv(prefix)))
-        # the checkpoint's save and load
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        ckpt.save_checkpoint(os.path.join(tmp, "copy"), 2, state)
-        save_s = time.perf_counter() - tic
-        fresh = create_train_state(cfg, device="cuda")
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        ckpt.load_checkpoint(prefix, 2, fresh)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - tic
-        require(fresh.step == steps and all(
-            torch.equal(a, b) for a, b in zip(fresh.momentum,
-                                              state.momentum)),
-                "the loaded checkpoint differs from the state")
-        # fit_params
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        images = torch.randint(0, 256, (64, OUT, OUT, 3), generator=gen,
-                               device="cuda", dtype=torch.uint8)
-        x = _eval_fn(cfg)(images)
-        want = eval_logits(state, x)
-        mx_prefix = os.path.join(tmp, "mx")
-        save_mxnet_style(mx_prefix, 2, state, fmt="params")
-        mx_cfg = config_from_args(build_parser().parse_args(
-            fit_argv(mx_prefix, "--load-epoch", "2")))
-        loaded = Solver(mx_cfg, device="cuda").init_state()
-        got = eval_logits(loaded, x)
-        require(loaded.step == steps and not any(
-            m.any() for m in loaded.momentum), ".params resume state")
-        require(torch.equal(got, want), "eval logits after the .params "
-                f"round trip differ by {(got - want).abs().max().item()}")
-        emit(phase="fit_params", file=os.path.basename(mx_prefix)
-             + "-0002.params", step=loaded.step, logits=tuple(got.shape),
-             bit_equal=True)
-        del fresh, loaded, state
+    prefix = os.path.join(tmp, "r50")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    tic = time.perf_counter()
+    with LogLines() as log, timed_train_calls() as calls:
+        state = train_resnet.main(fit_argv(prefix))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - tic
+    launches = k1.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    call_ms = [a.elapsed_time(b) for a, b in calls]
+    windows = log.numbers(r"Speed: ([\d.]+) samples/sec")
+    switched = log.numbers(r"bn-ema: warmup done at step (\d+)")
+    epoch_s = log.numbers(r"Epoch\[\d+\] Time cost=([\d.]+)")
+    losses = log.numbers(r"Epoch\[\d+\] Train-cross-entropy=([-\w.]+)")
+    val = log.numbers(r"Epoch\[\d+\] Validation-accuracy=([-\w.]+)")
+    steps = 2 * FIT_EXAMPLES // 128
+    require(state.step == steps, f"fit ended at step {state.step}")
+    require(switched == [12.0], f"bn-ema switched at {switched}")
+    require(len(losses) == 2 and all(map(math.isfinite, losses)),
+            f"epoch losses {losses}")
+    require(len(val) == 2 and len(windows) == 6 and len(call_ms) == 8,
+            f"{val} {windows} {call_ms}")
+    require(launches == steps, f"K1 launched {launches} times in "
+            f"{steps} steps")
+    cfg = config_from_args(build_parser().parse_args(fit_argv(prefix)))
+    # the checkpoint's save and load
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    ckpt.save_checkpoint(os.path.join(tmp, "copy"), 2, state)
+    save_s = time.perf_counter() - tic
+    fresh = create_train_state(cfg, device="cuda")
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    ckpt.load_checkpoint(prefix, 2, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - tic
+    require(fresh.step == steps and all(
+        torch.equal(a, b) for a, b in zip(fresh.momentum,
+                                          state.momentum)),
+            "the loaded checkpoint differs from the state")
+    # fit_params
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randint(0, 256, (64, OUT, OUT, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    x = _eval_fn(cfg)(images)
+    want = eval_logits(state, x)
+    mx_prefix = os.path.join(tmp, "mx")
+    save_mxnet_style(mx_prefix, 2, state, fmt="params")
+    mx_cfg = config_from_args(build_parser().parse_args(
+        fit_argv(mx_prefix, "--load-epoch", "2")))
+    loaded = Solver(mx_cfg, device="cuda").init_state()
+    got = eval_logits(loaded, x)
+    require(loaded.step == steps and not any(
+        m.any() for m in loaded.momentum), ".params resume state")
+    require(torch.equal(got, want), "eval logits after the .params "
+            f"round trip differ by {(got - want).abs().max().item()}")
+    emit(phase="fit_params", file=os.path.basename(mx_prefix)
+         + "-0002.params", step=loaded.step, logits=tuple(got.shape),
+         bit_equal=True)
+    del fresh, loaded, state
     steady = windows[1:]
     fit_img_s = statistics.median(steady)
     busy_ms = sum(call_ms[4:])        # the 4 calls of epoch 1
@@ -1524,9 +1583,12 @@ def _state_gap(path_a, path_b, init):
 def fit_resume_phase():
     """Real CLI processes: two uninterrupted runs, and one that gets
     SIGTERM mid-epoch, exits 143 and is relaunched with ``--auto-resume``.
-    One epoch at 112x112 keeps the four processes short. Each runs the
-    entry point through ``deterministic_train`` (deterministic cuDNN and
-    cuBLAS, ``torch.use_deterministic_algorithms``): where the two
+    One epoch of ResNet-18 at 112x112 (the preset otherwise) keeps the
+    four processes short; the two
+    uninterrupted runs and the killed one start at once, the relaunch
+    when the killed one has exited. Each runs the entry point through
+    ``deterministic_train`` (deterministic cuDNN and cuBLAS,
+    ``torch.use_deterministic_algorithms``): where the two
     uninterrupted runs agree bit for bit, the resumed run must equal them
     bit for bit, as the CPU test ``test_kill_and_resume_is_bit_equal``
     holds it; where they do not, the ops that warned are named and the
@@ -1537,8 +1599,8 @@ def fit_resume_phase():
 
     def cli(prefix, *extra):
         return [sys.executable, "-u", __file__, "--deterministic-train",
-                *fit_argv(prefix, "--num-epochs", "1", "--image-shape",
-                          "112,112,3", *extra)]
+                *fit_argv(prefix, "--num-epochs", "1", "--depth", "18",
+                          "--image-shape", "112,112,3", *extra)]
 
     def run(cmd, kill_at=None):
         proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
@@ -1560,17 +1622,28 @@ def fit_resume_phase():
     outs = []
     with trace_dir() as tmp:
         tic = time.perf_counter()
-        rcs = {}
-        for name in ("a", "b"):
-            rcs[name], out = run(cli(os.path.join(tmp, name)))
-            outs.append(out)
-            require(rcs[name] == 0, f"run {name} failed:\n{out[-3000:]}")
         killed = os.path.join(tmp, "killed")
-        rc_kill, out = run(cli(killed), kill_at="Epoch[0] Batch [12]")
+        # side by side on the card: deterministic algorithms give the same
+        # bits however the processes interleave
+        def kill_and_resume():
+            first = run(cli(killed), "Epoch[0] Batch [12]")
+            if first[0] != 143:
+                return first, None
+            return first, run(cli(killed, "--auto-resume"))
+
+        with ThreadPoolExecutor(3) as pool:
+            runs = [pool.submit(run, cli(os.path.join(tmp, name)))
+                    for name in ("a", "b")]
+            resumed = pool.submit(kill_and_resume)
+            for name, fut in zip(("a", "b"), runs):
+                rc, out = fut.result()
+                outs.append(out)
+                require(rc == 0, f"run {name} failed:\n{out[-3000:]}")
+            (rc_kill, out), second = resumed.result()
         outs.append(out)
         require(rc_kill == 143, f"killed run exited {rc_kill}:\n{out[-3000:]}")
         saved = re.findall(r"checkpointed epoch 0 batch (\d+)", out)
-        rc_res, out = run(cli(killed, "--auto-resume"))
+        rc_res, out = second
         outs.append(out)
         require(rc_res == 0, f"resumed run failed:\n{out[-3000:]}")
         require("Resumed from epoch 0" in out, "the relaunch did not resume")
@@ -1663,6 +1736,213 @@ def prefetch_check_phase(cfg):
     emit(phase="prefetch_check", epochs=2, dispatch_sizes=ns,
          checksummed=len(got), compared_exactly=exact, equal=True)
     del state, steps
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Deployment: fit_path's checkpoint through the symbol file, the MXNet pair,
+# predict, validate, the serving artifact and its benchmark
+# ---------------------------------------------------------------------------
+
+# the artifact against the live model on the card: serve_export --check's bar
+SERVE_TOL = 1e-3
+SERVE_REQUESTS = 8
+SERVE_BATCHES = (1, 7, 256)
+
+
+def tool_run(main, argv):
+    """A tool's ``main(argv)`` in this process, its standard output captured
+    (its lines must not pass for this script's JSON lines); returns (exit
+    code, output)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def serve_phase(tmp):
+    """fit_path's epoch-2 checkpoint in ``tmp`` (the imagenet_resnet50
+    preset at full width: ResNet-50 v1, s2d stem, bf16, 224x224) through
+    the deployment tools, one line a step: the ``-symbol.json`` fit wrote
+    (``serve_symbol``); ``export_mxnet``'s pair (``serve_export_mxnet``);
+    ``predict`` on 8 PNG files and an 8-record JPEG ``.rec`` of the
+    validation canvases, from the ``.pt`` checkpoint and from the pair
+    with wrong ``--depth`` flags (``serve_predict``); ``validate`` against
+    the Solver's epoch-2 validation (``serve_validate``); ``serve_export
+    --check`` with a symbolic batch (then checked at batches 1, 7 and 256
+    on the card), a pinned one, and for two devices, which this one-card
+    machine refuses (``serve_export_check``); and ``bench_serving`` at
+    ResNet-50, batch 256 (``serve_bench``). The tools' checks run on
+    cuDNN's deterministic algorithms, so the live model and the artifact
+    take the same ones."""
+    import ast
+    import io
+    import os
+    import numpy as np
+    from PIL import Image
+    from resnet_tpu_torch.config import build_parser, config_from_args
+    from resnet_tpu_torch.data.loader import make_val_iter
+    from resnet_tpu_torch.data.recordio import (RecordIOWriter,
+                                                pack_image_record)
+    from resnet_tpu_torch.tools import (bench_serving, export_mxnet, predict,
+                                        serve_export, validate)
+    from resnet_tpu_torch.tools.common import load_trained
+    from resnet_tpu_torch.utils.export import export_mxnet_params
+    from resnet_tpu_torch.utils.mxnet_params import load_params
+    from resnet_tpu_torch.utils.serving import load_serving, make_serving_fn
+    from resnet_tpu_torch.utils.symbol_export import (config_from_symbol,
+                                                      symbol_json)
+    prefix = os.path.join(tmp, "r50")
+    argv = fit_argv(prefix, "--load-epoch", "2")
+    cfg = config_from_args(build_parser().parse_args(argv))
+    with deterministic_cudnn():
+        tic = time.perf_counter()
+        sym_path = f"{prefix}-symbol.json"
+        with open(sym_path) as f:
+            sym_equal = f.read() == symbol_json(cfg)
+        other = config_from_args(build_parser().parse_args(
+            ["--preset", "cifar10_resnet18", "--num-classes", "7"]))
+        back = config_from_symbol(other, sym_path)
+        got = [back.model.network, back.model.depth, back.model.version,
+               back.data.num_classes]
+        want = [cfg.model.network, cfg.model.depth, cfg.model.version,
+                cfg.data.num_classes]
+        emit(phase="serve_symbol", file=os.path.basename(sym_path),
+             equals_symbol_json=sym_equal, config_from_symbol=got,
+             preset=want, seconds=time.perf_counter() - tic)
+        require(sym_equal, "fit's -symbol.json is not symbol_json(cfg)")
+        require(got == want, f"config_from_symbol gave {got}, not {want}")
+
+        tic = time.perf_counter()
+        pair = os.path.join(tmp, "pair", "r50")
+        rc, out = tool_run(export_mxnet.main, ["--out", pair, "--", *argv])
+        require(rc == 0 and out.split() == [f"{pair}-symbol.json",
+                                            f"{pair}-0002.params"], out)
+        _, state = load_trained(cfg, "cuda")
+        tables = load_params(f"{pair}-0002.params")
+        want_tables = export_mxnet_params(state)
+        pair_equal = all(
+            sorted(t) == sorted(w) and all(np.array_equal(t[k], w[k])
+                                           for k in w)
+            for t, w in zip(tables, want_tables))
+        emit(phase="serve_export_mxnet", files=out.split(),
+             arrays=sum(map(len, tables)), equal_to_checkpoint=pair_equal,
+             seconds=time.perf_counter() - tic)
+        require(pair_equal, "the .params arrays differ from the checkpoint")
+
+        tic = time.perf_counter()
+        val = next(iter(make_val_iter(cfg).epoch_iter(0)))["image"]
+        requests = os.path.join(tmp, "requests")
+        os.makedirs(requests)
+        rec = os.path.join(tmp, "requests.rec")
+        with RecordIOWriter(rec) as w:
+            for i, img in enumerate(val[:SERVE_REQUESTS]):
+                Image.fromarray(img).save(os.path.join(requests,
+                                                       f"{i}.png"))
+                jpeg = io.BytesIO()
+                Image.fromarray(img).save(jpeg, format="JPEG", quality=95)
+                w.write(pack_image_record(jpeg.getvalue(), 0.0, i))
+        inputs = ["--inputs", requests, rec, "--"]
+        rc_pt, from_pt = tool_run(predict.main, inputs + argv)
+        rc_pair, from_pair = tool_run(predict.main, inputs + fit_argv(
+            pair, "--load-epoch", "2", "--depth", "18", "--num-classes",
+            "10"))
+        answers = [json.loads(line) for line in from_pt.splitlines()]
+        top1 = [a["top_k"][0]["class"] for a in answers]
+        canvases = np.stack([c for _, c in predict._iter_inputs(
+            [requests, rec], (OUT, OUT), 1 << 30)])
+        live = make_serving_fn(cfg, state.model)
+        with torch.inference_mode():
+            argmax = live(torch.from_numpy(canvases).cuda()).argmax(
+                -1).tolist()
+        emit(phase="serve_predict", requests=len(answers),
+             png=SERVE_REQUESTS, rec_records=SERVE_REQUESTS,
+             pair_equals_checkpoint=from_pair == from_pt, top1=top1,
+             live_argmax=argmax, first_answer=answers[0],
+             seconds=time.perf_counter() - tic)
+        require(rc_pt == 0 and rc_pair == 0, "predict failed")
+        require(len(answers) == 2 * SERVE_REQUESTS, f"{len(answers)} answers")
+        require(from_pair == from_pt, "predict from the pair (wrong --depth "
+                "flags, the symbol overriding them) answers otherwise")
+        require(top1 == argmax, "predict's top-1 is not the live argmax")
+
+        tic = time.perf_counter()
+        with open(f"{prefix}.metrics.jsonl") as f:
+            fit_val = next(r for r in map(json.loads, f)
+                           if r["split"] == "val" and r["epoch"] == 1)
+        rc, out = tool_run(validate.main, argv)
+        got = ast.literal_eval(out.strip().splitlines()[-1])
+        n = len(make_val_iter(cfg).images)
+        # the two passes may take other cuDNN algorithms (the fit's were
+        # autotuned): within one image of each count, the loss to 1e-3
+        gaps = {k: abs(got[k] - fit_val[k]) * n for k in
+                ("accuracy", "top_k_accuracy_5")}
+        loss_gap = abs(got["cross-entropy"] - fit_val["cross-entropy"]) \
+            / abs(fit_val["cross-entropy"])
+        emit(phase="serve_validate", images=n, validate=got,
+             fit_epoch_2={k: fit_val[k] for k in got}, count_gaps=gaps,
+             loss_rel_gap=loss_gap, seconds=time.perf_counter() - tic)
+        require(rc == 0 and all(g <= 1 + 1e-6 * n for g in gaps.values())
+                and loss_gap <= 1e-3, "validate differs from the Solver")
+
+        tic = time.perf_counter()
+        art = os.path.join(tmp, "artifacts")
+        checks = {}
+        for name, extra in (("symbolic", []),
+                            ("pinned", ["--serve-batch-size", "8"])):
+            rc, out = tool_run(serve_export.main, [
+                "--out", os.path.join(art, name), "--check", *extra, "--",
+                *argv])
+            require(rc == 0, f"serve_export --check ({name}):\n{out}")
+            checks[name] = float(re.search(r"max \|dlogit\| = (\S+)",
+                                           out).group(1))
+        sym = os.path.join(art, "symbolic")
+        written_on = sorted({t.device.type for t in
+                             torch.export.load(sym + ".pt2")
+                             .state_dict.values()})
+        serve, manifest = load_serving(sym)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randint(0, 256, (max(SERVE_BATCHES), OUT, OUT, 3),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+        batch_errs = {}
+        for b in SERVE_BATCHES:
+            got = serve(x[:b])
+            with torch.inference_mode():
+                want = live(x[:b])
+            require(got.shape == (b, cfg.data.num_classes)
+                    and got.device.type == "cuda", f"batch {b}: {got.shape}")
+            batch_errs[b] = float((got - want).abs().max())
+            require(torch.allclose(got, want, atol=SERVE_TOL,
+                                   rtol=SERVE_TOL),
+                    f"batch {b}: the artifact is {batch_errs[b]} off")
+        try:
+            tool_run(serve_export.main, [
+                "--out", os.path.join(art, "two"), "--serve-devices", "2",
+                "--check", "--", *argv])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        emit(phase="serve_export_check", tol=SERVE_TOL,
+             check_max_abs_err=checks, written_on=written_on,
+             loaded_on="cuda", batch_max_abs_err=batch_errs,
+             input_shape=manifest["input"]["shape"],
+             artifact_mb=os.path.getsize(sym + ".pt2") / 2 ** 20,
+             two_device_refused=refused, seconds=time.perf_counter() - tic)
+        require(written_on == ["cpu"], f"artifact tensors on {written_on}")
+        require(refused is not None and "exported for 2 devices" in refused,
+                f"a 2-device artifact on one card: {refused}")
+    del state, live, serve, x
+    torch.cuda.empty_cache()
+
+    tic = time.perf_counter()
+    rc, out = tool_run(bench_serving.main, ["--windows", "3", "--steps",
+                                            "50"])
+    rec = json.loads(next(line for line in out.splitlines()
+                          if line.startswith("{")))
+    emit(phase="serve_bench", **rec, card=nvidia_smi_line(),
+         seconds=time.perf_counter() - tic)
+    require(rc == 0 and rec["value"] > 0 and rec["live_jit"] > 0,
+            "bench_serving")
     torch.cuda.empty_cache()
 
 
@@ -1965,8 +2245,7 @@ def allreduce_call_us(group, calls=200):
 
 def dp_path_rank(remat_img_s):
     """The body of ``dp_path``, one rank under the launcher, NCCL."""
-    from resnet_tpu_torch.config import (imagenet_resnet50,
-                                         imagenet_resnet152_dp)
+    from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.ops import fused_unit as fu
     from resnet_tpu_torch.ops.augment_fused import \
         fused_crop_mirror_normalize as k1
@@ -1980,15 +2259,14 @@ def dp_path_rank(remat_img_s):
     require(backend == "nccl", f"the DP path runs on {backend}")
     out = {}
     for mode in ("shard_map", "jit"):
-        cfg = imagenet_resnet152_dp()
-        cfg.train.num_devices, cfg.train.batch_size = 1, BATCH
-        cfg.train.dp_mode = mode
+        cfg = dp_preset(dp_mode=mode)
         launches, img_s, gib = train_path(
-            f"dp_path_{mode}", cfg, 2, {k1: 1}, model="resnet152",
+            f"dp_path_{mode}", cfg, 2, {k1: 1}, model=f"resnet{DP_DEPTH}",
             group=group, dp_mode=mode, world_size=1, backend=backend,
             remat=True, remat_path_img_per_s=remat_img_s or "not run",
             note="imagenet_resnet152_dp through the launcher at its "
-                 "per-replica width, --num-devices 1 --batch-size 128")
+                 "per-replica width, --num-devices 1 --batch-size 128, "
+                 f"depth {DP_DEPTH}")
         dp_gap, plain_gap, ops = dp_equivalence(cfg, group)
         emit(phase=f"dp_path_{mode}_vs_plain", dp_vs_plain_rel_gap=dp_gap,
              plain_run_to_run_rel_gap=plain_gap, bit_equal=dp_gap == 0,
@@ -2026,8 +2304,9 @@ def dp_path_rank(remat_img_s):
 
 
 def dp_path_phase(remat_img_s):
-    """``imagenet_resnet152_dp`` at its per-replica width through the
-    port's launcher at world size 1 over NCCL, in both ``dp_mode``s, and
+    """``dp_preset`` (imagenet_resnet152_dp's per-replica width at depth
+    ``DP_DEPTH``) through the port's launcher at world size 1 over NCCL,
+    in both ``dp_mode``s, and
     the chain and fused paths under ``shard_map``. Returns the summary
     line."""
     lines = rank_script("dp_path_rank", 1,
@@ -2067,7 +2346,7 @@ def build_phase():
                 f"{name}: {usage[name]} (spill stores in the build log)")
 
 
-FIT_PHASES = ("fit", "fit_resume", "prefetch")
+FIT_PHASES = ("fit", "serve")
 
 
 def child_phases(phases, main_img_s=None):
@@ -2111,16 +2390,24 @@ def run_child(only, main_img_s):
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.models.registry import get_model
     if "mm_timing" in only:
+        CLOCK.begin("mm_timing")
         full = imagenet_resnet50()
         full.train.bn_ema = False
         ops_a, ops_b, _ = r50_op_shapes(get_model(full), BATCH, OUT)
         emit(phase="mm_step_ms", step_ms=time_matmul_kernels(ops_a, ops_b))
+    require("serve" not in only or "fit" in only,
+            "serve reads fit's checkpoint: run --only fit,serve")
     if "fit" in only:
-        fit_path_phase(main_img_s)
-    if "fit_resume" in only:
-        fit_resume_phase()
-    if "prefetch" in only:
-        prefetch_check_phase(imagenet_resnet50())
+        # serve reads fit's checkpoints from the directory they share
+        with trace_dir() as tmp:
+            CLOCK.begin("fit")
+            fit_path_phase(main_img_s, tmp)
+            if "serve" in only:
+                CLOCK.begin("serve")
+                serve_phase(tmp)
+    CLOCK.begin("end")
+    emit(phase="child_timing", seconds_by_phase=CLOCK.totals,
+         seconds=sum(CLOCK.totals.values()))
     return 0
 
 
@@ -2154,9 +2441,17 @@ def main(argv=None):
         normalized_matmul_with_stats as k3
     from resnet_tpu_torch.ops.fused_convbn import matmul_with_stats as k2
 
-    def on(phase):
+    def selected(phase):
         return not only or phase in only
 
+    def on(phase):
+        """Whether ``phase`` runs; if it does, its clock starts."""
+        if selected(phase):
+            CLOCK.begin(phase)
+            return True
+        return False
+
+    CLOCK.begin("card")
     card = nvidia_smi_line()
     print(card, flush=True)
     sms, mhz, rate = lane_ops_per_s()
@@ -2164,7 +2459,9 @@ def main(argv=None):
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, sms=sms, sm_clock_max_mhz=mhz,
          float32_lane_ops_per_s=rate)
+    CLOCK.begin("build")
     build_phase()
+    CLOCK.begin("r50_shapes")
 
     cfg = imagenet_resnet50()                      # the preset: bn-ema
     full = imagenet_resnet50()                     # full-batch BN
@@ -2194,6 +2491,62 @@ def main(argv=None):
         k5_worst = check_k5()
     if on("reduce_probe"):
         k5_probe = reduce_probe_phase()
+    if on("rotate_check"):
+        rotate_check_phase(cfg)
+    main_img_s = None
+    if on("main"):
+        main_l, main_img_s, _ = train_path("main_path", cfg, 3, {k1: 1},
+                                           eval_after=True)
+    if on("chain"):
+        chain_l, _, _ = train_path("chain_path", chain, 3, {
+            k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
+            fu.fused_backward: 36})
+    if on("fused"):
+        fused_l, _, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
+    if on("fullbatch"):
+        train_path("fullbatch_path", full, 2, {k1: 1})
+    # the rest of the model family: ResNeXt-50 32x4d at the preset (the
+    # grouped 3x3s block-diagonal, two groups a block) and through cuDNN's
+    # grouped convolution, CIFAR ResNet-18 (no kernel), the
+    # imagenet_resnet152_dp share at DP_DEPTH with and without remat
+    if on("resnext"):
+        resnext_l, _, _ = train_path("resnext_path", resnext_cfg(), 3,
+                                     {k1: 1}, eval_after=True,
+                                     model="resnext50_32x4d",
+                                     grouped_dense=True, grouped_merge=2)
+    if on("resnext_grouped"):
+        train_path("resnext_grouped_path", resnext_cfg(False), 2, {k1: 1},
+                   model="resnext50_32x4d", grouped_dense=False)
+    if on("cifar"):
+        from resnet_tpu_torch.config import cifar10_resnet18
+        train_path("cifar_path", cifar10_resnet18(), 20, {}, eval_after=True,
+                   model="cifar_resnet18", absent=(k1,))
+    remat_img_s = None
+    if on("remat"):
+        remat_img_s = remat_path_phase(k1)
+    if on("k1_split_mode"):
+        split_time = k1_split_mode_phase(cfg)
+        split_cfg = copy.deepcopy(cfg)
+        split_cfg.data.augment_impl = "pallas-split"
+        split_l, _, _ = train_path(
+            "split_path", split_cfg, 2, {k1: 1}, augment_impl="pallas-split",
+            main_path_img_per_s=main_img_s)
+    if on("trace_probe"):
+        trace_probe_phase()
+    # data parallelism, each in processes of its own: the
+    # imagenet_resnet152_dp path at world size 1 over NCCL, two gloo ranks
+    # on the card, the dry run
+    if on("dp_path"):
+        dp = dp_path_phase(remat_img_s)
+    # the untimed phases, side by side: fit_resume's CLI processes and the
+    # rank processes of dp_reference and dryrun from threads, the float32
+    # reference steps and prefetch_check in this one. Nothing here is
+    # timed, and each line carries its own seconds; the timing line
+    # counts the block as the phases of this thread and "untimed_wait"
+    side = ThreadPoolExecutor(3)
+    untimed = [side.submit(fn) for name, fn in (
+        ("fit_resume", fit_resume_phase), ("dp_reference", dp_reference_phase),
+        ("dryrun", dryrun_phase)) if selected(name)]
     if on("reference"):
         reference_check("reference_check")
     if on("chain_reference"):
@@ -2221,57 +2574,14 @@ def main(argv=None):
         reference_check("mask_pool_reference", pool_grad="mask")
     if on("remat_reference"):
         remat_reference_phase()
-    if on("rotate_check"):
-        rotate_check_phase(cfg)
-    main_img_s = None
-    if on("main"):
-        main_l, main_img_s, _ = train_path("main_path", cfg, 3, {k1: 1},
-                                           eval_after=True)
-    if on("chain"):
-        chain_l, _, _ = train_path("chain_path", chain, 3, {
-            k1: 1, fu.matmul_stats: 20, fu.norm_relu_matmul_stats: 16,
-            fu.fused_backward: 36})
-    if on("fused"):
-        fused_l, _, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
-    if on("fullbatch"):
-        train_path("fullbatch_path", full, 2, {k1: 1})
-    # the rest of the model family: ResNeXt-50 32x4d at the preset (the
-    # grouped 3x3s block-diagonal, two groups a block) and through cuDNN's
-    # grouped convolution, CIFAR ResNet-18 (no kernel), ResNet-152 with and
-    # without remat
-    if on("resnext"):
-        resnext_l, _, _ = train_path("resnext_path", resnext_cfg(), 3,
-                                     {k1: 1}, eval_after=True,
-                                     model="resnext50_32x4d",
-                                     grouped_dense=True, grouped_merge=2)
-    if on("resnext_grouped"):
-        train_path("resnext_grouped_path", resnext_cfg(False), 2, {k1: 1},
-                   model="resnext50_32x4d", grouped_dense=False)
-    if on("cifar"):
-        from resnet_tpu_torch.config import cifar10_resnet18
-        train_path("cifar_path", cifar10_resnet18(), 20, {}, eval_after=True,
-                   model="cifar_resnet18", absent=(k1,))
-    remat_img_s = None
-    if on("remat"):
-        remat_img_s = remat_path_phase(k1)
-    if on("k1_split_mode"):
-        split_time = k1_split_mode_phase(cfg)
-        split_cfg = copy.deepcopy(cfg)
-        split_cfg.data.augment_impl = "pallas-split"
-        split_l, _, _ = train_path(
-            "split_path", split_cfg, 2, {k1: 1}, augment_impl="pallas-split",
-            main_path_img_per_s=main_img_s)
-    if on("trace_probe"):
-        trace_probe_phase()
-    # data parallelism, each in processes of its own: two gloo ranks on the
-    # card, the imagenet_resnet152_dp path at world size 1 over NCCL, the
-    # dry run
-    if on("dp_reference"):
-        dp_reference_phase()
-    if on("dp_path"):
-        dp = dp_path_phase(remat_img_s)
-    if on("dryrun"):
-        dryrun_phase()
+    if on("prefetch"):
+        prefetch_check_phase(cfg)
+    CLOCK.begin("untimed_wait")
+    try:
+        for fut in untimed:
+            fut.result()
+    finally:
+        side.shutdown()
     # last, in processes of their own (child_phases): mm_timing's
     # per-shape profiled windows leave the host slower for the rest of the
     # process (the bn-ema path's calls took 0.87 s instead of 0.67 after
@@ -2279,8 +2589,13 @@ def main(argv=None):
     if on("mm_timing"):
         step_ms = next(line["step_ms"] for line in child_phases(["mm_timing"])
                        if line.get("phase") == "mm_step_ms")
-    if any(map(on, FIT_PHASES)):
-        child_phases([p for p in FIT_PHASES if on(p)], main_img_s)
+    fit_phases = [p for p in FIT_PHASES if selected(p)]
+    if fit_phases:
+        CLOCK.begin("fit_child")
+        child_phases(fit_phases, main_img_s)
+    CLOCK.begin("end")
+    emit(phase="timing", seconds_by_phase=CLOCK.totals,
+         seconds=sum(CLOCK.totals.values()))
 
     if not only:
         def mm_kernel(name, source, replaces, launches, err, t):

@@ -59,6 +59,7 @@ from resnet_tpu_torch.utils.export import load_mxnet_checkpoint
 from resnet_tpu_torch.utils.logging import setup_logging
 from resnet_tpu_torch.utils.metric_writer import MetricWriter
 from resnet_tpu_torch.utils.profiler import maybe_trace
+from resnet_tpu_torch.utils.symbol_export import save_symbol
 
 _SUM_KEYS = ("top1_sum", "top5_sum", "loss_sum", "count")
 
@@ -401,6 +402,11 @@ class Solver:
         # collective
         check_equal(train_iter.steps_per_epoch, "steps per epoch",
                     self.device)
+        if t.model_prefix and is_primary():
+            # the checkpoint pair carries its own graph, as
+            # mx.model.save_checkpoint writes prefix-symbol.json beside the
+            # .params files; tools/predict.py reads the network back from it
+            save_symbol(t.model_prefix, self.cfg)
         barrier("resnet_tpu:fit")
 
         # SIGTERM -> one final mid-epoch save, then exit 143. The handler

@@ -883,3 +883,53 @@ def test_world_size_1_nccl_step_equals_the_plain_step(cuda, dp_mode,
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def _serving_case(tmp_path, dtype="bfloat16"):
+    """The imagenet_resnet50 preset at depth 18, 64x64, random weights from
+    its seed, and a symbolic-batch artifact written from its CPU copy."""
+    from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.models.registry import get_model
+    from resnet_tpu_torch.utils.serving import export_serving
+    cfg = imagenet_resnet50()
+    cfg.model.depth, cfg.train.dtype = 18, dtype
+    cfg.data.num_classes, cfg.data.image_shape = 10, (64, 64, 3)
+    model = get_model(cfg)
+    prefix = str(tmp_path / "serve")
+    export_serving(cfg, model, prefix)
+    return cfg, model, prefix
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_written_artifact_serves_on_the_card_at_any_batch(cuda, tmp_path,
+                                                             dtype):
+    from resnet_tpu_torch.utils.serving import load_serving, make_serving_fn
+    cfg, model, prefix = _serving_case(tmp_path, dtype)
+    serve, manifest = load_serving(prefix)          # device=None: the card
+    assert manifest["platforms"] == ["cpu", "cuda"]
+    live = make_serving_fn(cfg, model.to(cuda, memory_format=torch.channels_last))
+    x = torch.randint(0, 256, (7, 64, 64, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    for b in (1, 7):
+        got = serve(x[:b])
+        with torch.inference_mode():
+            want = live(x[:b])
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert got.shape == (b, 10)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    # the same file on the CPU gives the CPU module's logits
+    cpu_serve, _ = load_serving(prefix, device="cpu")
+    assert cpu_serve(x[:1].cpu()).device.type == "cpu"
+
+
+def test_two_device_artifact_needs_two_cards(cuda, tmp_path):
+    from resnet_tpu_torch.utils.serving import export_serving, load_serving
+    cfg, model, _ = _serving_case(tmp_path)
+    export_serving(cfg, model, str(tmp_path / "two"), num_devices=2)
+    if torch.cuda.device_count() >= 2:
+        serve, _ = load_serving(str(tmp_path / "two"))
+        assert serve(torch.zeros(4, 64, 64, 3, dtype=torch.uint8)).shape \
+            == (4, 10)
+    else:
+        with pytest.raises(ValueError, match="exported for 2 devices"):
+            load_serving(str(tmp_path / "two"))
