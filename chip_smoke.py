@@ -97,6 +97,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import re
@@ -1754,7 +1755,6 @@ def tool_run(main, argv):
     """A tool's ``main(argv)`` in this process, its standard output captured
     (its lines must not pass for this script's JSON lines); returns (exit
     code, output)."""
-    import io
     with contextlib.redirect_stdout(io.StringIO()) as out:
         rc = main(argv)
     return rc, out.getvalue()
@@ -2324,6 +2324,111 @@ def dryrun_phase():
          seconds=time.perf_counter() - tic)
 
 
+# ---------------------------------------------------------------------------
+# The training-evidence tools (resnet_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+BENCH_INPUT_RUNS = (("sequential", ()), ("interleave_4", ("--interleave", "4")))
+
+
+def bench_input_phase(k1):
+    """``bench_input`` at its defaults (ResNet-50 bs64 224, bf16, 512 JPEGs
+    of 256x256 in one shard, 4 decode threads), sequential legs and
+    ``--interleave 4``: the record path (``RecordIter``, the host queue,
+    ``prefetch_to_device``) feeding the train step, K1 counted. Nothing
+    else runs beside it. Returns mode -> K1 launches."""
+    from resnet_tpu_torch.tools import bench_input
+    launches = {}
+    for mode, extra in BENCH_INPUT_RUNS:
+        args = bench_input.build_parser().parse_args(list(extra))
+        k1.launches = 0
+        tic = time.perf_counter()
+        rec = bench_input.bench(args)
+        seconds = time.perf_counter() - tic
+        launches[mode] = k1.launches
+        # 2 warm-up steps and 1 on the pool, then the timed steps of both
+        # legs: an epoch (512 // 64) each, or at least 2 windows of 4
+        steps = args.num_images // args.batch_size
+        timed = 2 * (max(2, steps // args.interleave) * args.interleave
+                     if args.interleave else steps)
+        require(launches[mode] == 3 + timed, f"bench_input {mode}: K1 "
+                f"launched {launches[mode]} times, expected {3 + timed}")
+        require(rec["step_ms_device_data"] > 0
+                and rec["step_ms_end_to_end"] > 0
+                and math.isfinite(rec["input_overhead"]),
+                f"bench_input {mode}: {rec}")
+        emit(phase="bench_input", mode=mode, k1_launches=launches[mode],
+             **rec, seconds=seconds, card=nvidia_smi_line(),
+             device=torch.cuda.get_device_name(0))
+    return launches
+
+
+def convergence_phase():
+    """``nightly_convergence`` at its defaults, plain and ``--bn-ema``:
+    both must pass its bar (0.98)."""
+    from resnet_tpu_torch.tools import nightly_convergence
+    for extra in ([], ["--bn-ema"]):
+        tic = time.perf_counter()
+        rc, out = tool_run(nightly_convergence.main, extra)
+        line = out.strip().splitlines()[-1]
+        acc = float(re.search(r"val accuracy ([0-9.]+)", line).group(1))
+        emit(phase="convergence", bn_ema=bool(extra), val_accuracy=acc,
+             bar=0.98, result=line.split(":")[0],
+             seconds=time.perf_counter() - tic)
+        require(rc == 0 and line.startswith("convergence PASS"),
+                f"convergence{' --bn-ema' if extra else ''}: {line}")
+
+
+def device_parity_phase():
+    """``device_parity`` at its defaults: ResNet-20 CIFAR, bs16, float32
+    (TF32 off), the CPU against the card from one state and one stream of
+    draws; all three gates must pass."""
+    from resnet_tpu_torch.tools import device_parity
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = device_parity.parity(device_parity.build_parser().parse_args([]))
+    emit(phase="device_parity", **res, seconds=time.perf_counter() - tic)
+    require(res["ok"], f"device_parity: {res['gates']}")
+
+
+EMA_PROBE_RUNS = (("defaults", ()),
+                  ("preset_program", ("--clamp", "1", "--warmup", "-2")))
+EMA_PROBE_SEEDS = (0, 1, 2, 3)
+
+
+def ema_probe_phase(k1):
+    """``ema_probe`` on the stripe tree built by the port's copy
+    (``tools/stripes.py``): depth-18 ResNet, ImageNet stem, 32x32, the
+    record pipeline decoding with Pillow on this machine, K1 on the card,
+    through ``Solver.fit``. At its defaults (clamp 2, one warmup epoch)
+    and at the preset's bn-ema program (clamp 1, two warmup epochs), each
+    at seeds 0-3. The tool as a user runs the preset's program (seed 0)
+    must beat chance (1/3); the defaults are a point of the JAX package's
+    sweep that lands at chance in some seeds, so they are reported, not
+    gated."""
+    from resnet_tpu_torch.tools import ema_probe
+    from resnet_tpu_torch.tools.stripes import build_stripe_tree
+    with tempfile.TemporaryDirectory(prefix="stripes_") as root:
+        build_stripe_tree(root)
+        for run, extra in EMA_PROBE_RUNS:
+            for seed in EMA_PROBE_SEEDS:
+                args = ema_probe.build_parser().parse_args(
+                    ["--data", root, "--seed", str(seed), *extra])
+                k1.launches = 0
+                tic = time.perf_counter()
+                rec = ema_probe.probe(args)
+                n = k1.launches
+                # 120 records at bs24: 5 steps an epoch, one launch a step
+                emit(phase="ema_probe", run=run, seed=seed, **rec,
+                     k1_launches=n, seconds=time.perf_counter() - tic)
+                require(n == 5 * args.epochs, f"ema_probe {run} seed "
+                        f"{seed}: K1 launched {n} times, expected "
+                        f"{5 * args.epochs}")
+                if run == "preset_program" and seed == 0:
+                    require(rec["val_accuracy"] > 1 / 3,
+                            f"ema_probe {run}: at chance {rec}")
+
+
 def build_phase():
     from resnet_tpu_torch import _build
     tic = time.perf_counter()
@@ -2347,6 +2452,10 @@ def build_phase():
 
 
 FIT_PHASES = ("fit", "serve")
+# what the training-evidence tools report is agreement and accuracy, not
+# speed: two child processes beside the untimed block, of about equal
+# length (one would outlast the block)
+EVIDENCE_CHILDREN = (("convergence",), ("device_parity", "ema_probe"))
 
 
 def child_phases(phases, main_img_s=None):
@@ -2389,6 +2498,17 @@ def run_child(only, main_img_s):
         return 0
     from resnet_tpu_torch.config import imagenet_resnet50
     from resnet_tpu_torch.models.registry import get_model
+    from resnet_tpu_torch.ops.augment_fused import \
+        fused_crop_mirror_normalize as k1
+    if "convergence" in only:
+        CLOCK.begin("convergence")
+        convergence_phase()
+    if "device_parity" in only:
+        CLOCK.begin("device_parity")
+        device_parity_phase()
+    if "ema_probe" in only:
+        CLOCK.begin("ema_probe")
+        ema_probe_phase(k1)
     if "mm_timing" in only:
         CLOCK.begin("mm_timing")
         full = imagenet_resnet50()
@@ -2533,20 +2653,29 @@ def main(argv=None):
             main_path_img_per_s=main_img_s)
     if on("trace_probe"):
         trace_probe_phase()
+    if on("bench_input"):
+        bench_input_launches = bench_input_phase(k1)
     # data parallelism, each in processes of its own: the
     # imagenet_resnet152_dp path at world size 1 over NCCL, two gloo ranks
     # on the card, the dry run
     if on("dp_path"):
         dp = dp_path_phase(remat_img_s)
-    # the untimed phases, side by side: fit_resume's CLI processes and the
-    # rank processes of dp_reference and dryrun from threads, the float32
-    # reference steps and prefetch_check in this one. Nothing here is
-    # timed, and each line carries its own seconds; the timing line
-    # counts the block as the phases of this thread and "untimed_wait"
-    side = ThreadPoolExecutor(3)
-    untimed = [side.submit(fn) for name, fn in (
+    # the untimed phases, side by side: fit_resume's CLI processes, the
+    # rank processes of dp_reference and dryrun, and the child processes of
+    # the training-evidence tools from threads, the float32 reference steps
+    # and prefetch_check in this one. Nothing here is timed, and each line
+    # carries its own seconds (the children's phases: their child_timing
+    # lines);
+    # the timing line counts the block as the phases of this thread and
+    # "untimed_wait"
+    side = ThreadPoolExecutor(5)
+    untimed = {name: side.submit(fn) for name, fn in (
         ("fit_resume", fit_resume_phase), ("dp_reference", dp_reference_phase),
-        ("dryrun", dryrun_phase)) if selected(name)]
+        ("dryrun", dryrun_phase)) if selected(name)}
+    for phases in EVIDENCE_CHILDREN:
+        phases = [p for p in phases if selected(p)]
+        if phases:
+            untimed[phases[-1]] = side.submit(child_phases, phases)
     if on("reference"):
         reference_check("reference_check")
     if on("chain_reference"):
@@ -2578,8 +2707,7 @@ def main(argv=None):
         prefetch_check_phase(cfg)
     CLOCK.begin("untimed_wait")
     try:
-        for fut in untimed:
-            fut.result()
+        done = {name: fut.result() for name, fut in untimed.items()}
     finally:
         side.shutdown()
     # last, in processes of their own (child_phases): mm_timing's
@@ -2622,6 +2750,12 @@ def main(argv=None):
                  split_mode_launches=split_l[k1],
                  dp_path_launches={m: dp[f"{m}_launches"]
                                    for m in ("shard_map", "jit")},
+                 bench_input_launches=bench_input_launches,
+                 ema_probe_launches={
+                     line["run"]: line["k1_launches"]
+                     for line in done["ema_probe"]
+                     if line.get("phase") == "ema_probe"
+                     and line["seed"] == 0},
                  split_mode_max_abs_err=split_time["max_abs_err"]),
             # ms, plain_ms and bound_ms of the next four: sums over the
             # launches of one ResNet-50 step at batch 128, bf16

@@ -23,7 +23,9 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# where the libraries go (utils/cache.py::enable_compile_cache moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags of one source only

@@ -3,11 +3,11 @@
 The port's own copy of ``resnet_tpu/config.py``: the field names,
 defaults, preset values and flags are the JAX package's, so one command
 line means the same run in both. Every flag of the JAX parser is
-accepted; ``require_ported`` raises ``NotImplementedError`` for a value
-that selects something the port does not have yet, naming the
-``ROADMAP.md`` item that brings it. Fields that only steer the XLA
-compiler (``spd_unroll``) are accepted and change nothing: the port's
-K-step call is a Python loop.
+accepted and ported; ``require_ported`` checks that more than one device
+runs under the launcher. ``--xla-opts`` carries the port's backend
+options (``utils/xla_opts.py``). Fields that only steer the XLA compiler
+(``spd_unroll``) are accepted and change nothing: the port's K-step call
+is a Python loop.
 """
 
 from __future__ import annotations
@@ -249,10 +249,9 @@ PRESETS = {
 
 
 def require_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` selects something the port
-    does not have yet; the message names the ``ROADMAP.md`` item. More
-    than one device needs a process a device, started by the launcher:
-    without its environment ``ValueError``."""
+    """Every switch of the JAX package is ported; what is left to check is
+    the device count. More than one device needs a process a device,
+    started by the launcher: without its environment ``ValueError``."""
     t = cfg.train
     if t.num_devices > 1 and ENV_COORD not in os.environ:
         raise ValueError(
@@ -260,14 +259,6 @@ def require_ported(cfg: Config) -> None:
             f"process; start {t.num_devices} processes with python -m "
             f"resnet_tpu_torch.tools.launch -n {t.num_devices} -- python -m "
             "resnet_tpu_torch.train_resnet ...")
-    missing = []
-    if t.xla_opts:
-        missing.append(("backend options in place of --xla-opts", 17))
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(
-                f"{what} (ROADMAP.md Queue 1 item {item})"
-                for what, item in missing))
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +448,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 
 def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
-    """argv -> Config; raises ``NotImplementedError`` for what the port
-    does not have yet (``require_ported``)."""
+    """argv -> Config, checked by ``require_ported``."""
     cfg = config_from_args(build_parser().parse_args(argv))
     require_ported(cfg)
     return cfg

@@ -101,7 +101,10 @@ class RecordIOWriter:
 
 
 class RecordIOReader:
-    """Sequential/random-access .rec reader."""
+    """Sequential/random-access .rec reader. Every read is positional
+    (``os.pread``), so one reader serves concurrent ``read_at`` calls (the
+    Pillow loader decodes in a thread pool); a shared seek-then-read
+    would hand one thread's bytes to another."""
 
     def __init__(self, rec_path: str, idx_path: Optional[str] = None):
         self._f = open(rec_path, "rb")
@@ -113,37 +116,35 @@ class RecordIOReader:
                 for line in open(idx_path) if line.strip()]
 
     def read_at(self, offset: int) -> bytes:
-        self._f.seek(offset)
-        rec = self._read_one()
+        rec, _ = self._read_one(offset)
         if rec is None:
             raise EOFError(f"no record at offset {offset}")
         return rec
 
-    def _read_one(self) -> Optional[bytes]:
+    def _read_one(self, pos: int) -> Tuple[Optional[bytes], int]:
+        """(the record at byte ``pos`` or None at the end, the next
+        record's position)."""
+        fd = self._f.fileno()
         pieces: List[bytes] = []
         while True:
-            head = self._f.read(8)
+            head = os.pread(fd, 8, pos)
             if len(head) < 8:
-                return None
+                return None, pos
             magic, lrec = struct.unpack("<II", head)
             if magic != MAGIC:
-                raise IOError(f"bad magic {magic:#x} at "
-                              f"{self._f.tell() - 8}")
+                raise IOError(f"bad magic {magic:#x} at {pos}")
             cf, ln = _cflag(lrec), _length(lrec)
-            data = self._f.read(ln)
-            pad = (-ln) % 4
-            if pad:
-                self._f.read(pad)
-            pieces.append(data)
+            pieces.append(os.pread(fd, ln, pos + 8))
+            pos += 8 + ln + (-ln) % 4
             if cf == 0 and len(pieces) == 1:
-                return data
+                return pieces[0], pos
             if cf == 3:
-                return _MAGIC_BYTES.join(pieces)
+                return _MAGIC_BYTES.join(pieces), pos
 
     def __iter__(self) -> Iterator[bytes]:
-        self._f.seek(0)
+        pos = 0
         while True:
-            rec = self._read_one()
+            rec, pos = self._read_one(pos)
             if rec is None:
                 return
             yield rec
@@ -151,12 +152,13 @@ class RecordIOReader:
     def scan_offsets(self) -> List[int]:
         """Build offsets by scanning (when no .idx is present)."""
         offs = []
-        self._f.seek(0)
+        pos = 0
         while True:
-            pos = self._f.tell()
-            if self._read_one() is None:
+            rec, nxt = self._read_one(pos)
+            if rec is None:
                 break
             offs.append(pos)
+            pos = nxt
         self.offsets = offs
         return offs
 

@@ -34,6 +34,7 @@ import torch
 
 from resnet_tpu_torch.config import imagenet_resnet50, imagenet_resnext50
 from resnet_tpu_torch.train.state import create_train_state
+from resnet_tpu_torch.utils.cache import enable_compile_cache
 from resnet_tpu_torch.utils.device import resolve_device
 from resnet_tpu_torch.utils.serving import (export_serving, load_serving,
                                             make_serving_fn)
@@ -64,6 +65,7 @@ def main(argv=None):
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    enable_compile_cache()
 
     cfg = (imagenet_resnext50() if args.network == "resnext"
            else imagenet_resnet50())

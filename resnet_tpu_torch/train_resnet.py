@@ -5,8 +5,11 @@ the process group when the launcher started this process, build this
 rank's share of the train and val iterators and the Solver, fit, and
 leave the group. Runs on the CUDA card (NCCL between ranks) unless
 ``--device cpu`` asks for the CPU (gloo); without a card it raises.
-cuDNN times its algorithms once per shape (``cudnn.benchmark``) unless
-the caller turned on ``torch.use_deterministic_algorithms``.
+``--xla-opts`` sets the backend switches (``utils/xla_opts.py``); by
+default on the card cuDNN times its algorithms once per shape
+(``cudnn.benchmark``) unless the caller turned on
+``torch.use_deterministic_algorithms``, and ``--xla-opts off`` leaves it
+off.
 
 Examples:
     python -m resnet_tpu_torch.train_resnet --preset imagenet_resnet50 \\
@@ -23,14 +26,14 @@ from __future__ import annotations
 
 import sys
 
-import torch
-
 from resnet_tpu_torch.config import build_parser, config_from_args
 from resnet_tpu_torch.data.loader import make_train_iter, make_val_iter
 from resnet_tpu_torch.parallel.dist import (finalize_distributed,
                                             maybe_init_distributed,
                                             proc_info)
 from resnet_tpu_torch.train.solver import Solver
+from resnet_tpu_torch.utils.xla_opts import (apply_backend_options,
+                                             compiler_options)
 
 
 def main(argv=None):
@@ -45,10 +48,9 @@ def main(argv=None):
                     log_file=f"{t.model_prefix}.log" if t.model_prefix
                     else None)
     solver.log.info("config: %s", cfg)
-    if solver.device.type == "cuda" \
-            and not torch.are_deterministic_algorithms_enabled():
-        # every call has the same shapes: let cuDNN time its algorithms once
-        torch.backends.cudnn.benchmark = True
+    # the switches belong to the process: set once, before any step
+    apply_backend_options(compiler_options(t.xla_opts or None,
+                                           solver.device.type))
     state = solver.fit(make_train_iter(cfg, num_parts, part_index),
                        make_val_iter(cfg, num_parts, part_index))
     # ranks finish at different times: leave the group together

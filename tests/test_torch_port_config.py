@@ -1,11 +1,12 @@
 """The port's configuration and command line against the JAX package's:
 every field both configs have must be equal after parsing the same argv,
-every preset must equal the JAX preset, and a switch the port does not
-have yet must raise ``NotImplementedError`` naming its ROADMAP item. The
-switches of ROADMAP items 11, 14 and 15 (the model family, remat, the
-pool backward, the warps, the split augmenter, data parallelism) are
-ported: they parse as the JAX package parses them, more than one device
-inside the launcher's environment only."""
+and every preset must equal the JAX preset. The switches of ROADMAP items
+11, 14, 15 and 17 (the model family, remat, the pool backward, the warps,
+the split augmenter, data parallelism, ``--xla-opts``) are ported: they
+parse as the JAX package parses them, more than one device inside the
+launcher's environment only. ``--xla-opts`` carries the port's backend
+options, so a key only XLA knows raises ``ValueError`` in the entry point
+before any step."""
 
 import dataclasses
 
@@ -76,8 +77,8 @@ def test_every_jax_flag_is_accepted():
     assert theirs <= ours and ours - theirs == {"device"}
 
 
-# the ROADMAP items whose switches the port has
-PORTED_ITEMS = (11, 14, 15)
+# the ROADMAP items whose switches the port has: all of them
+PORTED_ITEMS = (11, 14, 15, 17)
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -96,21 +97,36 @@ PORTED_ITEMS = (11, 14, 15)
     (["--xla-opts", "xla_cpu_enable_fast_math=true"], 17),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_unported_switch_raises(argv, item, monkeypatch):
-    """A switch of an item still to port raises, naming the item; one of a
-    ported item (11, 14, 15) parses to the JAX package's config; item 15's
-    more than one device only with the launcher's rendezvous set."""
+    """Every switch of the items that were once refused (11, 14, 15, 17)
+    parses to the JAX package's config; item 15's more than one device
+    only with the launcher's rendezvous set."""
+    assert item in PORTED_ITEMS
     want = jax_config.parse_config(argv)   # the JAX package accepts it
-    if item in PORTED_ITEMS:
-        if item == 15:
-            monkeypatch.delenv(config.ENV_COORD, raising=False)
-            with pytest.raises(ValueError, match="tools.launch"):
-                config.parse_config(argv)
-            monkeypatch.setenv(config.ENV_COORD, "127.0.0.1:1")
-        _assert_same(config.parse_config(argv), want)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        config.parse_config(argv)
+    if item == 15:
+        monkeypatch.delenv(config.ENV_COORD, raising=False)
+        with pytest.raises(ValueError, match="tools.launch"):
+            config.parse_config(argv)
+        monkeypatch.setenv(config.ENV_COORD, "127.0.0.1:1")
+    _assert_same(config.parse_config(argv), want)
+
+
+def test_xla_only_key_raises_in_the_entry_point_before_any_step(
+        monkeypatch, tmp_path):
+    """The JAX test's XLA flag parses, and the entry point refuses it as a
+    backend option, naming the known keys, before the fit starts."""
+    from resnet_tpu_torch import train_resnet
+
+    def no_fit(*a, **k):
+        raise AssertionError("the fit started")
+
+    monkeypatch.setattr(train_resnet.Solver, "fit", no_fit)
+    with pytest.raises(ValueError, match="cudnn_benchmark, "
+                       "cudnn_deterministic, tf32"):
+        train_resnet.main([
+            "--device", "cpu", "--preset", "cifar10_resnet18", "--depth",
+            "8", "--pipeline", "synthetic", "--num-examples", "32",
+            "--batch-size", "16", "--model-prefix", str(tmp_path / "ck"),
+            "--xla-opts", "xla_cpu_enable_fast_math=true"])
 
 
 def test_solver_refuses_unported_presets(monkeypatch):

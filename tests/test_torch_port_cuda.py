@@ -933,3 +933,50 @@ def test_two_device_artifact_needs_two_cards(cuda, tmp_path):
     else:
         with pytest.raises(ValueError, match="exported for 2 devices"):
             load_serving(str(tmp_path / "two"))
+
+
+def test_backend_options_switch_the_cards_float32_convolutions(cuda):
+    """``--xla-opts tf32=0`` makes a float32 convolution on the card agree
+    with the CPU's to float32 rounding; ``tf32=1`` lets cuDNN take TF32
+    (about three decimal digits); each setting is put back."""
+    from resnet_tpu_torch.utils.xla_opts import (apply_backend_options,
+                                                 compiler_options)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 64, 28, 28, generator=g)
+    w = torch.randn(64, 64, 3, 3, generator=g)
+    want = torch.nn.functional.conv2d(x, w, padding=1)
+    before = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    errs = {}
+    for tf32 in ("0", "1"):
+        restore = apply_backend_options(
+            compiler_options(f"tf32={tf32}", backend="cuda"))
+        try:
+            assert torch.backends.cudnn.benchmark is True   # the default
+            assert torch.backends.cudnn.allow_tf32 is (tf32 == "1")
+            got = torch.nn.functional.conv2d(x.to(cuda), w.to(cuda),
+                                             padding=1)
+            errs[tf32] = float((got.cpu() - want).abs().max()
+                               / want.abs().max())
+        finally:
+            restore()
+        assert (torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == before
+    assert errs["0"] < 1e-5, errs
+    assert errs["1"] < 1e-2, errs
+
+
+def test_bench_input_quick_runs_both_legs_through_k1(cuda, capsys):
+    """``bench_input --quick`` on the card: ResNet-18 at 64x64 bs16 over
+    128 records; K1 launches once a step: 2 warm-up steps, 1 on the pool,
+    8 a leg."""
+    import json
+    from resnet_tpu_torch.tools import bench_input
+    before = fused_crop_mirror_normalize.launches
+    assert bench_input.main(["--quick"]) == 0
+    assert fused_crop_mirror_normalize.launches - before == 3 + 2 * 8
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["decoder"] in ("native", "python")
+    assert rec["step_ms_device_data"] > 0 and rec["step_ms_end_to_end"] > 0
+    assert rec["cores_needed_for_device_rate"] > 0

@@ -1,6 +1,8 @@
 """The port stands alone: nothing under ``resnet_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX, its libraries, or the JAX package, and its
-entry points default to the CUDA card."""
+``chip_smoke.py`` imports JAX, its libraries, the JAX package, the
+repo's root ``tools/`` scripts or anything under ``tests/`` (nor puts
+either directory on ``sys.path``), and its entry points default to the
+CUDA card."""
 
 import ast
 import pathlib
@@ -14,9 +16,15 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "resnet_tpu")
 
 
-def _is_forbidden(module: str) -> bool:
+# the root tools/ scripts and the test modules, by the names a script
+# that put their directory on sys.path would import them under
+LOCAL = ("tools", "tests", *sorted(
+    p.stem for d in ("tools", "tests") for p in (ROOT / d).glob("*.py")))
+
+
+def _is_forbidden(module: str, names=FORBIDDEN) -> bool:
     # exact module names: resnet_tpu_torch shares resnet_tpu's prefix
-    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+    return any(module == f or module.startswith(f + ".") for f in names)
 
 
 def _imports(path: pathlib.Path):
@@ -40,6 +48,20 @@ def test_port_sources_import_nothing_of_jax():
     assert bad == []
 
 
+def test_port_sources_import_no_root_tool_and_no_test():
+    """The JAX ``tools/ema_probe.py`` imports a fixture of
+    ``tests/test_convergence_record.py``: the port keeps its own copy
+    (``resnet_tpu_torch/tools/stripes.py``)."""
+    assert {"ema_probe", "test_convergence_record", "conftest"} <= set(LOCAL)
+    sources = _port_sources()
+    bad = [(str(p.relative_to(ROOT)), m) for p in sources
+           for m in _imports(p) if _is_forbidden(m, LOCAL)]
+    assert bad == []
+    assert [str(p.relative_to(ROOT)) for p in sources
+            if "sys.path" in p.read_text()] == []
+    assert not _is_forbidden("resnet_tpu_torch.tools.ema_probe", LOCAL)
+
+
 def test_forbidden_match_is_exact():
     assert _is_forbidden("resnet_tpu.config")
     assert _is_forbidden("jax.numpy") and _is_forbidden("flax")
@@ -51,7 +73,12 @@ def test_importing_the_train_step_loads_no_jax():
     code = ("import sys, resnet_tpu_torch.train.steps, "
             "resnet_tpu_torch.ops.augment_fused, resnet_tpu_torch.utils.export, "
             "resnet_tpu_torch.train_resnet, resnet_tpu_torch.data.pipeline, "
-            "resnet_tpu_torch.data.im2rec\n"
+            "resnet_tpu_torch.data.im2rec, resnet_tpu_torch.tools.bench_input, "
+            "resnet_tpu_torch.tools.ema_equivalence, "
+            "resnet_tpu_torch.tools.ema_probe, "
+            "resnet_tpu_torch.tools.device_parity, "
+            "resnet_tpu_torch.tools.nightly_convergence, "
+            "resnet_tpu_torch.utils.cache, resnet_tpu_torch.utils.xla_opts\n"
             f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + "
             f"'.') for f in {FORBIDDEN!r})]\n"
             "assert not bad, bad\n")
