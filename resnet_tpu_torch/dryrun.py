@@ -1,7 +1,15 @@
-"""Multi-rank dry run of the data-parallel training step, port of
-``__graft_entry__.py::dryrun_multichip``.
+"""The compile-check entry and the multi-rank dry run of the
+data-parallel training step, port of ``__graft_entry__.py``'s ``entry``
+and ``dryrun_multichip``.
 
+    python -m resnet_tpu_torch.dryrun entry [--device cpu]
     python -m resnet_tpu_torch.dryrun N [--device cpu]
+
+``entry()`` returns ``(forward, (model, x))``: the ResNet-50 bf16 eval
+forward of ``Config()``, its model in eval mode on the card (or where
+``device`` says) and ``x``, zeros of shape ``(16, 224, 224, 3)`` float32,
+NHWC as the model takes it; ``forward(model, x)`` gives the float32
+logits.
 
 ``dryrun_multichip(n)`` starts ``n`` ranks of one process group, each on a
 card of its own over NCCL (it raises when there are fewer than ``n``
@@ -35,9 +43,40 @@ import sys
 import numpy as np
 import torch
 
-from resnet_tpu_torch.config import ENV_COORD
+from resnet_tpu_torch.config import ENV_COORD, Config
 
 TIMEOUT_S = 900
+
+
+def eval_forward(model: torch.nn.Module, images: torch.Tensor
+                 ) -> torch.Tensor:
+    """The model's eval-mode forward, without autograd."""
+    with torch.no_grad():
+        return model(images)
+
+
+def forward_entry(cfg: Config, batch: int, device=None):
+    """``(eval_forward, (model, x))`` for ``cfg``'s network (weights from
+    ``cfg.train.seed``) in eval mode, in ``channels_last`` on ``device``
+    (default: the card, raising without one), and ``x`` zeros of shape
+    ``(batch, *image_shape)`` float32."""
+    from resnet_tpu_torch.models.registry import get_model
+    from resnet_tpu_torch.utils.device import resolve_device
+    device = resolve_device(device)
+    model = get_model(cfg).to(device=device,
+                              memory_format=torch.channels_last).eval()
+    x = torch.zeros((batch, *cfg.data.image_shape), dtype=torch.float32,
+                    device=device)
+    return eval_forward, (model, x)
+
+
+def entry(device=None):
+    """(forward, example args): the ResNet-50 bf16 eval forward at batch
+    16, the JAX entry's flagship (module docstring)."""
+    cfg = Config()
+    cfg.model.depth = 50
+    cfg.train.dtype = "bfloat16"
+    return forward_entry(cfg, 16, device)
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda",
@@ -160,8 +199,8 @@ def _run_rank(device: str) -> None:
 if __name__ == "__main__":
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("n", nargs="?", type=int, default=2,
-                        help="ranks (default 2)")
+    parser.add_argument("n", nargs="?", default="2",
+                        help="ranks (default 2), or 'entry' to run entry()")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("--rank", action="store_true",
                         help=argparse.SUPPRESS)
@@ -170,5 +209,9 @@ if __name__ == "__main__":
         if ENV_COORD not in os.environ:
             sys.exit("--rank runs inside dryrun_multichip")
         _run_rank(a.device)
+    elif a.n == "entry":
+        fn, fn_args = entry(a.device)
+        out = fn(*fn_args)
+        print("entry ok:", tuple(out.shape), out.dtype)
     else:
-        dryrun_multichip(a.n, device=a.device)
+        dryrun_multichip(int(a.n), device=a.device)

@@ -30,6 +30,7 @@ from resnet_tpu_torch.ops.augment import (_rgb_to_hsl_adjust,
                                           finish_normalize, replica_draw,
                                           rotate_images, sample_boxes_canvas,
                                           sample_rotate)
+from resnet_tpu_torch.utils.op_count import report_kernel
 
 ROW_LEN = 12
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -169,7 +170,8 @@ def fused_crop_mirror_normalize(
 
     On a CUDA tensor it launches the CUDA kernel and raises if the launch
     fails; on a CPU tensor it runs the plain version.
-    ``fused_crop_mirror_normalize.launches`` counts kernel launches.
+    ``fused_crop_mirror_normalize.launches`` counts kernel launches; each
+    is reported to the active op counter (``utils/op_count.py``).
     """
     if canvas_u8.device.type == "cpu":
         return fused_crop_mirror_normalize_reference(
@@ -206,6 +208,11 @@ def fused_crop_mirror_normalize(
             f"fused_crop_mirror_normalize kernel launch failed: CUDA error "
             f"{err}")
     fused_crop_mirror_normalize.launches += 1
+    # no products; its bound's bytes: each input read once, the output
+    # written once
+    report_kernel("fused_crop_mirror_normalize", 0,
+                  sum(t.numel() * t.element_size()
+                      for t in (canvas_u8, rows, out)))
     return out
 
 

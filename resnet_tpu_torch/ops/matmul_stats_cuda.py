@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from resnet_tpu_torch.utils.op_count import report_kernel
+
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 BLOCK_ROWS = 128       # rows of y or dx, and of one partial sum, a block
 TILE_WIDTHS = (128, 64)   # output tile widths of the bf16 kernels
@@ -155,6 +157,26 @@ def _vector(name, v, size, device):
     return v if v.data_ptr() % 16 == 0 else v.clone()   # 16-byte copies
 
 
+def forward_cost(m: int, k: int, n: int, itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bound bytes) of one forward launch: the product's
+    ``2·M·K·N``; read x and W, write y and the two (N,) float32 sums."""
+    return 2 * m * k * n, (m * k + k * n + m * n) * itemsize + 2 * n * 4
+
+
+def backward_cost(m: int, k: int, n: int, itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bound bytes) of one backward launch: two products; read
+    gy, y, x and W, write dx and the float32 dW."""
+    return (2 * 2 * m * k * n,
+            (2 * m * n + 2 * m * k + k * n) * itemsize + k * n * 4)
+
+
+def report_launch(counter, cost: Tuple[int, int]) -> None:
+    """One launch of ``counter``'s kernel: its launch count, and its
+    FLOPs and bytes to the active ``utils/op_count.OpCounter``."""
+    counter.launches += 1
+    report_kernel(counter.__name__, *cost)
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -163,7 +185,8 @@ def _raise_on(err: int, what: str) -> None:
 def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
     """``(y, sum, sumsq)`` of the forward function. ``a`` and ``b`` (K,)
     float32 switch the prologue on. Adds one to ``counter.launches`` where
-    it launches the kernel."""
+    it launches the kernel, and reports the launch to the active op counter
+    (``report_launch``)."""
     if x.device.type == "cpu":
         return forward_plain(x, w, a, b, relu)
     if x.device.type != "cuda":
@@ -192,7 +215,7 @@ def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
             _DTYPE_CODES[x.dtype], int(normalize), int(relu), width, grid,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "matmul_stats")
-    counter.launches += 1
+    report_launch(counter, forward_cost(m, k, n, x.element_size()))
     total, total_sq = stats.sum(dim=2)
     return y, total, total_sq
 
@@ -295,7 +318,7 @@ def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
             int(relu), dx_width, dx_grid, dw_width, dw_grid,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "matmul_stats_bwd")
-    counter.launches += 1
+    report_launch(counter, backward_cost(m, k, n, x.element_size()))
     # (K, N) view of dW^T (N, K); the splits summed in a fixed order
     dw = (dwt_part[0] if splits == 1 else dwt_part.sum(dim=0)).t()
     if not normalize:

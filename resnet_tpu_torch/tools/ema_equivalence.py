@@ -24,9 +24,14 @@ within 0.06 of each other, the gap of bn-ema at most 0.05.
         [--epochs 14] [--data DIR]
     python -m resnet_tpu_torch.tools.ema_equivalence --device cpu
 
-Runs on the card unless ``--device cpu``; without a card it raises. The
-digits come from sklearn; without it, pass ``--data`` (a tree this tool
-built).
+Runs on the card unless ``--device cpu``; without a card it raises.
+
+The digits are the UCI optical recognition of handwritten digits test
+set as ``sklearn.datasets.load_digits`` ships it (8x8 scans, values
+0-16). Where sklearn does not import, ``build_digits`` reads the 750
+scans it uses, and their labels, from ``digits_8x8.npz`` beside this
+module: uint8 copies of sklearn's first 750 images and targets, written
+from its bundled data, so both routes build the same tree byte for byte.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import json
 import os
 import sys
 import tempfile
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,24 +51,41 @@ import torch
 from resnet_tpu_torch.config import Config
 
 
-def build_digits(root: str) -> str:
-    """Pack the sklearn digit scans as the JAX package's tool does: 600
-    train images in two shards (``train_000.rec``, ``train_001.rec``), 150
-    in ``val.rec``."""
-    from PIL import Image
-    try:
+DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "digits_8x8.npz")
+N_DIGITS = 750
+
+
+def digit_scans(use_sklearn: Optional[bool] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """The first ``N_DIGITS`` scans, (750, 8, 8) float64 in 0-16, and their
+    labels: from ``sklearn.datasets.load_digits``, or from the committed
+    ``DIGITS_FILE`` (module docstring). ``use_sklearn=None`` takes sklearn
+    where it imports."""
+    if use_sklearn is None:
+        try:
+            import sklearn.datasets  # noqa: F401
+            use_sklearn = True
+        except ImportError:
+            use_sklearn = False
+    if use_sklearn:
         from sklearn.datasets import load_digits
-    except ImportError as e:
-        raise ImportError(
-            "ema_equivalence builds its digits with sklearn "
-            "(sklearn.datasets.load_digits), which is not installed; pass "
-            "--data with a tree this tool built elsewhere") from e
+        d = load_digits()
+        return d.images[:N_DIGITS], d.target[:N_DIGITS]
+    with np.load(DIGITS_FILE) as z:
+        return z["images"].astype(np.float64), z["labels"].astype(np.int64)
+
+
+def build_digits(root: str, use_sklearn: Optional[bool] = None) -> str:
+    """Pack the digit scans (``digit_scans``) as the JAX package's tool
+    does: 600 train images in two shards (``train_000.rec``,
+    ``train_001.rec``), 150 in ``val.rec``."""
+    from PIL import Image
 
     from resnet_tpu_torch.data.im2rec import build_list, pack
 
-    d = load_digits()
-    images = (d.images * (255.0 / 16.0)).astype(np.uint8)
-    labels = d.target
+    scans, labels = digit_scans(use_sklearn)
+    images = (scans * (255.0 / 16.0)).astype(np.uint8)
 
     def dump(dst, idx):
         for i in idx:
@@ -73,7 +96,7 @@ def build_digits(root: str) -> str:
             im.save(os.path.join(cls_dir, f"d{i}.jpg"), quality=95)
 
     dump(os.path.join(root, "trainsrc"), range(0, 600))
-    dump(os.path.join(root, "valsrc"), range(600, 750))
+    dump(os.path.join(root, "valsrc"), range(600, N_DIGITS))
     with contextlib.redirect_stdout(io.StringIO()):   # pack's "wrote" lines
         pack(os.path.join(root, "trainsrc"), os.path.join(root, "train"),
              build_list(os.path.join(root, "trainsrc")), num_shards=2)

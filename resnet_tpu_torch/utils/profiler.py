@@ -5,10 +5,12 @@
 card's kernels where there is a card) into a chrome trace under a log
 directory, given as an argument or by ``RESNET_TPU_PROFILE=<logdir>``, the
 JAX package's switch. The trace opens in Perfetto or ``chrome://tracing``;
-``newest_trace``, ``load_trace`` and ``kernel_times`` read it back without
-either: the device's kernel events, summed by name. That is the port's one
-reading of "device time by kernel" (``tools/trace_probe.py`` and
-``chip_smoke.py`` both use it).
+``newest_trace``, ``load_trace``, ``kernel_times`` and
+``kernel_sequence`` read it back without either: the device's kernel
+events, summed by name, or in order with the host ops that launched them.
+That is the port's one reading of "device time by kernel"
+(``tools/trace_probe.py``, ``tools/aug_fusion_probe.py`` and
+``chip_smoke.py`` use it).
 
 ``time_fn`` and ``input_overhead`` are the JAX module's step-time helpers;
 ``cuda_median_ms`` times one function on the card with CUDA events.
@@ -26,7 +28,7 @@ import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -89,6 +91,31 @@ def kernel_times(trace: dict, categories: Tuple[str, ...] = KERNEL_CATEGORIES
             total[ev["name"]] += float(ev.get("dur", 0.0))
             count[ev["name"]] += 1
     return dict(total), dict(count)
+
+
+def kernel_sequence(trace: dict) -> List[Dict[str, object]]:
+    """The device's kernels in the order they started: each ``name``,
+    ``group`` (``kernel_group``), ``us`` (its duration), ``op`` and
+    ``op_ts``, the host op that launched it (the ``cpu_op`` event that
+    shares its ``External id``; None where the trace links none) and when
+    that op began (µs, the trace's clock)."""
+    ops = {ev["args"]["External id"]: ev
+           for ev in trace.get("traceEvents", [])
+           if ev.get("cat") == "cpu_op"
+           and "External id" in ev.get("args", {})}
+    kernels = sorted(
+        (ev for ev in trace.get("traceEvents", [])
+         if ev.get("ph") == "X"
+         and str(ev.get("cat", "")).lower() in KERNEL_CATEGORIES),
+        key=lambda ev: float(ev["ts"]))
+    out = []
+    for ev in kernels:
+        op = ops.get(ev.get("args", {}).get("External id"))
+        out.append({"name": ev["name"], "group": kernel_group(ev["name"]),
+                    "us": float(ev.get("dur", 0.0)),
+                    "op": op["name"] if op else None,
+                    "op_ts": float(op["ts"]) if op else None})
+    return out
 
 
 def _mangled_name(name: str) -> str:

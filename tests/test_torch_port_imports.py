@@ -78,7 +78,13 @@ def test_importing_the_train_step_loads_no_jax():
             "resnet_tpu_torch.tools.ema_probe, "
             "resnet_tpu_torch.tools.device_parity, "
             "resnet_tpu_torch.tools.nightly_convergence, "
-            "resnet_tpu_torch.utils.cache, resnet_tpu_torch.utils.xla_opts\n"
+            "resnet_tpu_torch.utils.cache, resnet_tpu_torch.utils.xla_opts, "
+            "resnet_tpu_torch.utils.op_count, resnet_tpu_torch.dryrun, "
+            "resnet_tpu_torch.tools.cost_probe, "
+            "resnet_tpu_torch.tools.pod_compile_probe, "
+            "resnet_tpu_torch.tools.serving_pod_probe, "
+            "resnet_tpu_torch.tools.quant_probe, "
+            "resnet_tpu_torch.tools.aug_fusion_probe\n"
             f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + "
             f"'.') for f in {FORBIDDEN!r})]\n"
             "assert not bad, bad\n")
