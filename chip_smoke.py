@@ -778,13 +778,56 @@ def kernel_ms_by_group(fn, flush, want, calls=5):
                          f"{seen} of {want}")
 
 
+@contextlib.contextmanager
+def timed_launch_functions():
+    """Host microseconds of every call of a kernel library's C launch
+    function while inside: the wrappers load their library through
+    ``_build.load_library`` at each call, so a stand-in that times each
+    exported function sees exactly the launch (tensor-map encoding and
+    kernel launches, no Python around it). Yields the list of times."""
+    from resnet_tpu_torch import _build
+    real, times = _build.load_library, []
+
+    class Timed:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+
+            def timed(*args):
+                tic = time.perf_counter()
+                out = fn(*args)
+                times.append((time.perf_counter() - tic) * 1e6)
+                return out
+            return timed
+
+    _build.load_library = lambda name: Timed(real(name))
+    try:
+        yield times
+    finally:
+        _build.load_library = real
+
+
+def launch_host_us(fn, calls=20):
+    """Median host µs of the C launch function under ``fn``, one call of
+    the wrapper each (the card synchronized before, not between)."""
+    torch.cuda.synchronize()
+    with timed_launch_functions() as times:
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_matmul_kernels(ops_a, ops_b):
     """Each distinct ResNet-50 shape, forward and backward, bf16: the
-    kernel, its plain version, the bound, and ``torch.mm`` on the bare
-    product(s) as context; and from one profiled window each, the forward
-    kernel apart from the wrapper's ``psum.sum`` and the backward's dx
-    kernel, dW kernel and partial sums apart. Returns per-step sums by
-    kernel."""
+    kernel, its plain version, the bound, ``torch.mm`` on the bare
+    product(s) as context (summed over the step beside the kernels' sums;
+    cuBLAS computes less than the kernels do), the host µs of the C launch
+    function; and from one profiled window each, the forward kernel apart
+    from the wrapper's ``psum.sum`` and the backward's dx kernel, dW kernel
+    and partial sums apart. Returns per-step sums by kernel."""
     from resnet_tpu_torch.ops import fused_chain as fc
     from resnet_tpu_torch.ops import fused_convbn as cb
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -796,16 +839,17 @@ def time_matmul_kernels(ops_a, ops_b):
     count_a = {s: ops_a.count(s) for s in dict.fromkeys(ops_a)}
     count_b = {s: ops_b.count(s) for s in dict.fromkeys(ops_b)}
     zero = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                        ops_ms=0.0)
+                        ops_ms=0.0, torch_mm_ms=0.0)
     step = {"k2": zero(), "k3": zero(), "k4f": zero(), "k4b": zero()}
     parts = dict(fwd_kernel_ms=0.0, fwd_sums_ms=0.0, dx_kernel_ms=0.0,
                  dw_kernel_ms=0.0, bwd_sums_ms=0.0)
 
-    def add(key, times, ms, plain_ms, bound, by):
+    def add(key, times, ms, plain_ms, bound, by, mm_ms):
         step[key]["ms"] += times * ms
         step[key]["plain_ms"] += times * plain_ms
         step[key]["bound_ms"] += times * bound
         step[key]["bytes_ms" if by == "bytes" else "ops_ms"] += times * bound
+        step[key]["torch_mm_ms"] += times * mm_ms
 
     def med(fn):
         return cuda_median_ms(fn, flush=flush)
@@ -825,7 +869,7 @@ def time_matmul_kernels(ops_a, ops_b):
                     x, w, *bn.values(), 2e-5, True, "pallas"))
                 k3_ms = med(lambda: fc.normalized_matmul_with_stats(
                     x, w, **bn))
-                add("k3", times, k3_ms, plain_ms, bound, by)
+                add("k3", times, k3_ms, plain_ms, bound, by, mm_ms)
                 # K2 runs conv3 too, without the prologue
                 k2_ms = med(lambda: cb.matmul_with_stats(x, w))
                 k2_plain = med(lambda: mk.forward_plain(x, w))
@@ -833,13 +877,14 @@ def time_matmul_kernels(ops_a, ops_b):
                 ms = med(lambda: fu.matmul_stats(x, w, "pallas"))
                 k2_ms, k2_plain = med(lambda: cb.matmul_with_stats(x, w)), \
                     plain_ms
-            add("k4f", times, ms, plain_ms, bound, by)
-            add("k2", times, k2_ms, k2_plain, bound, by)
+            add("k4f", times, ms, plain_ms, bound, by, mm_ms)
+            add("k2", times, k2_ms, k2_plain, bound, by, mm_ms)
+            k4f_call = (lambda: fu.norm_relu_matmul_stats(
+                x, w, *bn.values(), 2e-5, True, "pallas")) if prologue \
+                else (lambda: fu.matmul_stats(x, w, "pallas"))
+            host_us = launch_host_us(k4f_call)
             split, fwd_traced = kernel_ms_by_group(
-                (lambda: fu.norm_relu_matmul_stats(
-                    x, w, *bn.values(), 2e-5, True, "pallas")) if prologue
-                else (lambda: fu.matmul_stats(x, w, "pallas")), flush,
-                want=("matmul_stats_kernel",))
+                k4f_call, flush, want=("matmul_stats_kernel",))
             kernel_ms = split["matmul_stats_kernel"]
             sums_ms = split.get("reduce_kernel", 0.0)
             parts["fwd_kernel_ms"] += times * kernel_ms
@@ -848,8 +893,8 @@ def time_matmul_kernels(ops_a, ops_b):
                  normalize=prologue, relu=prologue, runs=25, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                  share_of_bound=bound / ms, torch_mm_ms=mm_ms, k2_ms=k2_ms,
-                 k3_ms=k3_ms if prologue else None,
-                 tile=mk.tile_plan(shape[0], shape[2])[0],
+                 k3_ms=k3_ms if prologue else None, launch_host_us=host_us,
+                 tile=mk.forward_plan(*shape)[0],
                  traced_calls=fwd_traced, traced_kernel_ms=kernel_ms,
                  traced_psum_sums_ms=sums_ms)
 
@@ -861,7 +906,8 @@ def time_matmul_kernels(ops_a, ops_b):
             plain_ms = med(lambda: fu.fused_backward_plain(*args))
             gy = cots["gy"]
             mm_ms = med(lambda: (torch.mm(gy, w.t()), torch.mm(x.t(), gy)))
-            add("k4b", times, ms, plain_ms, bound, by)
+            add("k4b", times, ms, plain_ms, bound, by, mm_ms)
+            host_us = launch_host_us(lambda: fu.fused_backward(*args))
             split, bwd_traced = kernel_ms_by_group(
                 lambda: fu.fused_backward(*args), flush,
                 want=("bwd_dx_kernel", "bwd_dw_kernel"))
@@ -875,7 +921,8 @@ def time_matmul_kernels(ops_a, ops_b):
                  normalize=prologue, relu=prologue, runs=25, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                  share_of_bound=bound / ms, torch_mm_ms=mm_ms,
-                 dx_tile=mk.tile_plan(shape[0], shape[1])[0],
+                 launch_host_us=host_us,
+                 dx_tile=mk.dx_plan(*shape, normalize=prologue)[0],
                  dw_tile=dw_tile, dw_splits=splits, traced_calls=bwd_traced,
                  traced_dx_ms=dx_ms,
                  traced_dw_ms=dw_ms, traced_partial_sums_ms=sums_ms)
@@ -2468,8 +2515,10 @@ EMA_EQUIVALENCE_GAP = 0.05      # bn-ema's eval-consistency gap, at most
 def ema_equivalence_phase():
     """``ema_equivalence`` at the JAX CI rung (one seed, 10 epochs, both BN
     programs through the record pipeline), its digits built from the
-    committed scans (no sklearn on this machine): each mode at least 0.8,
-    the two within 0.06, bn-ema's eval-consistency gap at most 0.05."""
+    committed scans (no sklearn on this machine), in float32 with
+    deterministic algorithms as the tool runs (so every run of this phase
+    gives the same accuracies): each mode at least 0.8, the two within
+    0.06, bn-ema's eval-consistency gap at most 0.05."""
     from resnet_tpu_torch.tools import ema_equivalence
     tic = time.perf_counter()
     rc, out = tool_run(ema_equivalence.main, list(EMA_EQUIVALENCE_ARGV))
@@ -2484,6 +2533,7 @@ def ema_equivalence_phase():
                     ema_gap=EMA_EQUIVALENCE_GAP),
          digits=("sklearn" if importlib.util.find_spec("sklearn")
                  else "digits_8x8.npz"),
+         backend=ema_equivalence.REPRODUCIBLE_OPTS,
          seconds=time.perf_counter() - tic)
     require(rc == 0 and full["val_accuracy"] >= EMA_EQUIVALENCE_BAR
             and ema["val_accuracy"] >= EMA_EQUIVALENCE_BAR, f"{rows}")
@@ -2692,8 +2742,10 @@ def build_phase():
                            spill_store_bytes=sum(spills))
     emit(phase="build", seconds=seconds,
          libraries=sorted(p.name for p in libs.values()), ptxas=usage)
-    # the matrix kernels are laid out for at most 128 registers a thread;
-    # a spill would put their fragments through local memory
+    # the matrix kernels run 384 threads, one block an SM, so ptxas gives a
+    # thread at most 168 registers (65,536 / 384; the consumers' 64-128
+    # accumulators and their epilogue live in those); a spill would put
+    # accumulators or epilogue values through local memory
     for name in ("matmul_stats", "matmul_stats_bwd"):
         require(usage[name]["kernels"] > 0 and
                 usage[name]["spill_store_bytes"] == 0,

@@ -19,27 +19,37 @@
 // is under the card's 295 bf16 operations per byte except for 512x2048 and
 // 1024x2048, where the tensor cores bound it. So the kernel has to keep
 // device memory busy all the time and the tensor cores fed at the wide
-// shapes. What the design does about it (bf16, matmul_stats_kernel):
+// shapes. What the design does about it (bf16, matmul_stats_kernel, on the
+// Hopper mainloop of wgmma_pipeline.cuh):
 //
-//   - A persistent grid (one block an SM) walks its output tiles of 128 x
-//     128 (128 x 64 where the output is at most 64 wide) one after
-//     another, and a ring of 4 shared-memory
-//     stages runs over the block's whole sequence of (tile, 64-deep k step):
-//     16-byte cp.async copies keep 3 stages in flight, so the next tile's
-//     operands load during this tile's product and epilogue. At K = 64 a
-//     tile is one stage, and the ring is what keeps memory busy.
-//   - Stages are XOR-swizzled so that ldmatrix reads hit distinct banks;
-//     the product is mma.sync m16n8k16 (bf16 in, float32 accumulate) from
-//     register fragments, 8 warps as 4 x 2, a warp 32 rows by half the
-//     tile. The prologue runs on the A fragments in registers, with a and b
-//     staged beside each stage; accumulators stay in registers into the
-//     epilogue.
-//   - The epilogue takes the column sums from the accumulators (rows past M
-//     count as exact zeros) by warp shuffles, then across the 4 warp rows in
-//     a fixed order, and stores y through a small per-warp staging buffer in
-//     16-byte chunks. The statistics leave as (N, ceil(M/128)) float32
-//     partials that the wrapper sums along their rows: no atomics, the same
-//     bits every run.
+//   - A persistent grid (one block an SM) walks its output tiles of 128
+//     rows by 64, 128 or 256 columns (ops/matmul_stats_cuda.py picks the
+//     width), and a ring of shared-memory stages (5; 3 at width 256) runs
+//     over the block's whole sequence of (tile, 64-deep k step): one
+//     producer thread keeps TMA copies of the x and Wt boxes in flight,
+//     so the next tile's operands load during this tile's product and
+//     epilogue. At K = 64 a tile is one stage, and the ring is what keeps
+//     memory busy. A 64-deep stage of a 128-wide tile carries 65
+//     operations for each byte it brings from L2, a 256-wide one 87: at
+//     the wide shapes the rate at which L2 feeds the SMs, not the tensor
+//     cores, is what the tiles run into (PERF.md), which is why the wider
+//     tile is taken where it measured faster.
+//   - Two consumer warpgroups, 64 rows of the tile each, run wgmma m64nNk16
+//     with both operands read from the swizzled stages through descriptors
+//     (N = the tile's width), so no thread spends registers or
+//     instructions on moving operands, and one group of products stays in
+//     flight while the warpgroup waits for and prepares the next stage.
+//     With the prologue, x cannot be read as it lies: the producer
+//     warpgroup's three transform warps rewrite each stage's x in place
+//     as [relu](x*a + b) (float32, rounded to bf16), fence it for the
+//     asynchronous proxy and hand the stage on through a `ready` barrier,
+//     so the consumers only run products and epilogues.
+//   - The epilogue takes the column sums from the float32 accumulators
+//     (rows past M are left out) by warp shuffles, then across the 8 warps
+//     in a fixed order; y leaves through swizzled staging boxes by TMA
+//     stores that run on while the next tile is computed. The statistics
+//     leave as (N, ceil(M/128)) float32 partials that the wrapper sums
+//     along their rows: no atomics, the same bits every run.
 //   - x and y cross device memory once (the tiles of one row panel are
 //     walked by neighbouring blocks at the same time, so x's re-reads for
 //     other column tiles hit L2), and the normalize+ReLU pass and both
@@ -50,10 +60,11 @@
 // float32 stays full precision (no TF32), a float32 staging tile.
 //
 // Layout: x (M, K) and y (M, N) row-major; W is passed as Wt (N, K)
-// row-major, the layout of a 1x1 conv's OIHW weight. Chunks past M, K or N
-// are zero-filled, so any M and any K, N that are multiples of 8 are taken.
+// row-major, the layout of a 1x1 conv's OIHW weight. TMA fills boxes past
+// M, K or N with zeros, so any M and any K, N that are multiples of 8 (16-
+// byte row pitches) are taken.
 
-#include "mma_pipeline.cuh"
+#include "wgmma_pipeline.cuh"
 
 namespace {
 
@@ -63,163 +74,177 @@ using namespace rt;
 constexpr int BM = 128;
 
 // ---------------------------------------------------------------------------
-// bf16: the pipelined kernel
+// bf16: the Hopper kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kBK = 64, kStages = 4;
-constexpr int kCPR = kBK / 8;  // 16-byte chunks in a stage row
-
+// ops/matmul_stats_cuda.py::smem_bytes mirrors this budget: 5 stages, 3
+// at the 256-wide tile, whose stages are half as large again.
 template <int BN>
 struct FwdSmem {
-  static constexpr int WTN = BN / kWarpsN;          // columns of a warp
-  static constexpr int A = BM * kBK, B = BN * kBK;  // elements of a stage
-  static constexpr int STAGE = (A + B) * 2 + 2 * kBK * 4;  // + a, b
-  static constexpr int RING = kStages * STAGE;
-  static constexpr int OUT = kThreads / 32 * warp_stage_bytes<WTN>();
-  static constexpr int RED = 2 * kWarpsM * BN * 4;
-  static constexpr int BYTES = RING + OUT + RED;
+  static constexpr int STAGES = BN == 256 ? 3 : 5;
+  static constexpr int SW = BN < 128 ? BN : 128;  // columns a store pass
+  static constexpr int A = BM * kBK * 2, B = BN * kBK * 2;  // bytes
+  static constexpr int STAGE = A + B;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int OUT = BM * SW * 2;  // y's swizzled staging boxes
+  static constexpr int RED = 2 * kConsumerWarps * BN * 4;  // (sum, sumsq)
+  static constexpr int BARS = 3 * STAGES * 8;  // full, empty, ready
+  static constexpr int BYTES = kAtomBytes + RING + OUT + RED + BARS;
+  static_assert(STAGE % kAtomBytes == 0, "stages stay atom-aligned");
+  static_assert(BYTES <= 232448, "over the block's shared memory");
 };
 
-// __launch_bounds__(256, 2) caps a thread at 128 registers; shared memory
-// keeps one block on an SM.
 template <int BN, bool NORMALIZE, bool RELU>
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+__global__ void __launch_bounds__(kBlockThreads, 1)
+matmul_stats_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap wt_map,
+                    const __grid_constant__ CUtensorMap y_map,
                     const float* __restrict__ a, const float* __restrict__ b,
-                    bf16* __restrict__ y, float* __restrict__ psum,
-                    float* __restrict__ psumsq, int M, int K, int N) {
+                    float* __restrict__ psum, float* __restrict__ psumsq,
+                    int M, int K, int N) {
   using S = FwdSmem<BN>;
-  constexpr int WTN = S::WTN, NJ = WTN / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
-  bf16* out_stage = reinterpret_cast<bf16*>(
-      smem + S::RING + warp * warp_stage_bytes<WTN>());
+  constexpr int R = BN / 2;  // accumulator registers a thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_atoms(smem_raw);
   float* red = reinterpret_cast<float*>(smem + S::RING + S::OUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::RING + S::OUT + S::RED);
+  constexpr int STAGES = S::STAGES;
+  uint64_t* empty = full + STAGES;
+  uint64_t* ready = empty + STAGES;  // transformed (with the prologue)
 
-  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = cdiv(N, BN), tiles_m = cdiv(M, BM);
   const int tiles = tiles_m * tiles_n;
-  const int ksteps = (K + kBK - 1) / kBK;
+  const int ksteps = cdiv(K, kBK);
   const int my_tiles = (int)blockIdx.x < tiles
                            ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                            : 0;
   const int steps = my_tiles * ksteps;
 
-  // start the copies of step p of the block's sequence into its stage
-  auto load_stage = [&](int p) {
-    if (p < steps) {
-      const int tile = blockIdx.x + (p / ksteps) * gridDim.x;
-      const int k0 = (p % ksteps) * kBK;
-      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-      bf16* As = reinterpret_cast<bf16*>(smem + p % kStages * S::STAGE);
-      bf16* Bs = As + S::A;
-      float* vec = reinterpret_cast<float*>(Bs + S::B);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+      mbar_init(&ready[s], kTransformWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < steps; ++p) {
+        const int s = p % STAGES;
+        mbar_wait(&empty[s], ((p / STAGES) & 1) ^ 1);
+        const int tile = blockIdx.x + (p / ksteps) * gridDim.x;
+        const int k0 = (p % ksteps) * kBK;
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        unsigned char* st = smem + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
+        tma_box(st, &x_map, &full[s], k0, m0);
+        tma_box(st + kBoxBytes, &x_map, &full[s], k0, m0 + 64);
 #pragma unroll
-      for (int it = 0; it < BM * kCPR / kThreads; ++it) {
-        const int c = tid + it * kThreads, r = c / kCPR, kc = c % kCPR;
-        const bool ok = (m0 + r < M) && (k0 + kc * 8 < K);
-        cp_async16(As + swz<kCPR>(r, kc), x + (size_t)(m0 + r) * K + k0 + kc * 8,
-                   ok, x);
+        for (int i = 0; i < BN / 64; ++i)
+          tma_box(st + S::A + i * kBoxBytes, &wt_map, &full[s], k0,
+                  n0 + 64 * i);
       }
-#pragma unroll
-      for (int it = 0; it < BN * kCPR / kThreads; ++it) {
-        const int c = tid + it * kThreads, r = c / kCPR, kc = c % kCPR;
-        const bool ok = (n0 + r < N) && (k0 + kc * 8 < K);
-        cp_async16(Bs + swz<kCPR>(r, kc),
-                   wt + (size_t)(n0 + r) * K + k0 + kc * 8, ok, wt);
-      }
-      if (NORMALIZE && tid < 2 * kBK / 4) {  // a then b, 4 floats a chunk
-        const int q = tid / (kBK / 4), kc = (tid % (kBK / 4)) * 4;
-        cp_async16(vec + q * kBK + kc, (q ? b : a) + k0 + kc, k0 + kc < K, a);
+    } else if (NORMALIZE && threadIdx.x >= 32) {
+      // act = [relu](x*a + b), rounded to bf16, in place of each stage's x
+      // (both 64-row boxes); a thread keeps one 8-column chunk, so a, b of
+      // its columns are read once a stage (zeros past K, where x is
+      // zero-filled, so act = 0 there)
+      const int tt = threadIdx.x - 32;
+      for (int p = 0; p < steps; ++p) {
+        const int s = p % STAGES;
+        const int k = (p % ksteps) * kBK + 8 * (tt & 7);
+        float av[8], bv[8];
+        load8(av, a, k, k < K);  // K % 8 == 0: the chunk is in or out
+        load8(bv, b, k, k < K);
+        unsigned char* st = smem + s * S::STAGE;
+        mbar_wait(&full[s], (p / STAGES) & 1);
+        for (int c = tt; c < 2 * kBoxChunks; c += kTransformThreads)
+          prologue_chunk<RELU>(reinterpret_cast<uint4*>(st + box_chunk(c)),
+                               av, bv);
+        transformed(&ready[s]);
       }
     }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
+    return;
+  }
 
-  const int a_base = a_frag_base<kCPR>(wm * kWarpRows, lane);
-  const int b_base = b_frag_base<kCPR>(wn * WTN, lane);
-  float acc[kMI][NJ][4];
-#pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) load_stage(p);
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - kWgThreads;  // consumer thread, 0..255
+  const int cw = ct >> 5, cg = cw >> 2;     // consumer warp, warpgroup
+  const int wt = ct & (kWgThreads - 1);     // thread of the warpgroup
+  const int lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = 64 * cg + 16 * (cw & 3);  // the warp's first tile row
+  unsigned char* staging = smem + S::RING + cg * (S::OUT / 2);
+  float acc[R];
 
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // this step's stage landed; the oldest one is free
-    load_stage(step + kStages - 1);
-    const int ks = step % ksteps;
-    if (ks == 0) zero(acc);
-    const bf16* As =
-        reinterpret_cast<const bf16*>(smem + step % kStages * S::STAGE);
-    const bf16* Bs = As + S::A;
-    const float* vec = reinterpret_cast<const float*>(Bs + S::B);
+  // The block's tiles, each a uniform loop over its k steps that keeps one
+  // group of products in flight (the previous step's stage is released
+  // once its group is done), then a full wait and the epilogue: ptxas
+  // follows that shape and adds no waits of its own.
+  int p = 0;  // the block's step, and so its stage in the ring
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int ks = 0; ks < ksteps; ++ks, ++p) {
+      const int s = p % STAGES;
+      unsigned char* st = smem + s * S::STAGE;
+      // the stage as TMA left it, or as the transform warps left it
+      mbar_wait(NORMALIZE ? &ready[s] : &full[s], (p / STAGES) & 1);
+      // A = the warpgroup's box of x (or act), B = the Wt boxes: K-major
+      const uint64_t da = sw128_desc(st + cg * kBoxBytes, 0, kAtomBytes);
+      const uint64_t db = sw128_desc(st + S::A, 0, kAtomBytes);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // both A fragments first (with the prologue), then the B fragments a
-      // pair of 8-column blocks at a time: few registers live at once
-      uint32_t af[kMI][4];
-#pragma unroll
-      for (int i = 0; i < kMI; ++i) {
-        ldsm_x4(af[i], As + (a_base ^ (kk << 4)) + i * 16 * kBK);
-        if constexpr (NORMALIZE) {
-          const int k = kk * 16 + 2 * t;
-          const float2 alo = *reinterpret_cast<const float2*>(vec + k);
-          const float2 ahi = *reinterpret_cast<const float2*>(vec + k + 8);
-          const float2 blo = *reinterpret_cast<const float2*>(vec + kBK + k);
-          const float2 bhi =
-              *reinterpret_cast<const float2*>(vec + kBK + k + 8);
-          af[i][0] = prologue2<RELU>(af[i][0], alo.x, alo.y, blo.x, blo.y);
-          af[i][1] = prologue2<RELU>(af[i][1], alo.x, alo.y, blo.x, blo.y);
-          af[i][2] = prologue2<RELU>(af[i][2], ahi.x, ahi.y, bhi.x, bhi.y);
-          af[i][3] = prologue2<RELU>(af[i][3], ahi.x, ahi.y, bhi.x, bhi.y);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < NJ / 2; ++jj) {
-        uint32_t r[4];
-        ldsm_x4(r, Bs + (b_base ^ (kk << 4)) + jj * 16 * kBK);
-#pragma unroll
-        for (int i = 0; i < kMI; ++i) {
-          mma_bf16(acc[i][2 * jj], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * jj + 1], af[i], r[2], r[3]);
-        }
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(acc, da + 2 * kk, db + 2 * kk, ks > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lane == 0 && ks > 0) mbar_arrive(&empty[(p - 1) % STAGES]);
     }
-    if (ks != ksteps - 1) continue;
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(p - 1) % STAGES]);
 
-    // Epilogue of the tile: column sums of the warp's rows per thread, over
-    // the row groups by shuffles, then over the 4 warp rows through `red`.
-    const int tile = blockIdx.x + (step / ksteps) * gridDim.x;
+    // Epilogue of the tile: column sums of the warp's 16 rows, over the row
+    // groups by shuffles, then over the 8 warps through `red`; y through
+    // the warpgroup's staging boxes and TMA stores.
     const int tm = tile / tiles_n, m0 = tm * BM, n0 = tile % tiles_n * BN;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float s = 0.0f, q = 0.0f;
+        float sv = 0.0f, q = 0.0f;
 #pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (m0 + wm * kWarpRows + 16 * i + 8 * h + g < M) {
-              const float v = acc[i][j][2 * h + e];
-              s += v;
-              q = fmaf(v, v, q);
-            }
-        s = sum_over_rows(s);
+        for (int h = 0; h < 2; ++h)
+          if (m0 + wrow + 8 * h + g < M) {
+            const float v = acc[4 * j + 2 * h + e];
+            sv += v;
+            q = fmaf(v, v, q);
+          }
+        sv = sum_over_rows(sv);
         q = sum_over_rows(q);
         if (g == 0) {
-          const int col = wn * WTN + 8 * j + 2 * t + e;
-          red[wm * BN + col] = s;
-          red[(kWarpsM + wm) * BN + col] = q;
+          const int col = 8 * j + 2 * t + e;
+          red[cw * BN + col] = sv;
+          red[(kConsumerWarps + cw) * BN + col] = q;
         }
       }
-    store_warp_tile<WTN>(acc, out_stage, y, m0 + wm * kWarpRows, n0 + wn * WTN,
-                         M, N);
-    __syncthreads();
-    const float sum = reduce_warp_rows<BN, 2>(red);
-    if (tid < 2 * BN && n0 + tid % BN < N)
-      (tid < BN ? psum : psumsq)[(size_t)(n0 + tid % BN) * tiles_m + tm] = sum;
+    store_rows<BN, S::SW>(acc, [](int, float(&)[2][2]) {}, &y_map, staging,
+                          wt, cg, 16 * (cw & 3), n0, m0 + 64 * cg);
+    consumer_sync();  // every warp's partials are in `red`
+    for (int c = ct; c < 2 * BN; c += 2 * kWgThreads) {
+      const int qn = c / BN, col = c % BN;
+      float total = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w)
+        total += red[(qn * kConsumerWarps + w) * BN + col];
+      if (n0 + col < N)
+        (qn ? psumsq : psum)[(size_t)(n0 + col) * tiles_m + tm] = total;
+    }
+    consumer_sync();  // `red` is read before the next tile writes it
   }
-  cp_async_wait<0>();
+  if (wt == 0) bulk_wait();
 }
 
 template <int BN, bool NORMALIZE, bool RELU>
@@ -229,12 +254,15 @@ int launch_bf16(const void* x, const void* wt, const void* a, const void* b,
   auto kernel = matmul_stats_kernel<BN, NORMALIZE, RELU>;
   constexpr int bytes = FwdSmem<BN>::BYTES;
   static bool smem_set[kMaxDevices] = {};
-  const int err = allow_dynamic_smem(kernel, bytes, smem_set);
+  int err = allow_dynamic_smem(kernel, bytes, smem_set);
   if (err != 0) return err;
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<bf16*>(y), static_cast<float*>(psum),
+  CUtensorMap x_map, wt_map, y_map;
+  if ((err = encode_box_map(&x_map, x, M, K)) != 0) return err;
+  if ((err = encode_box_map(&wt_map, wt, N, K)) != 0) return err;
+  if ((err = encode_box_map(&y_map, y, M, N)) != 0) return err;
+  kernel<<<grid, kBlockThreads, bytes, stream>>>(
+      x_map, wt_map, y_map, static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<float*>(psum),
       static_cast<float*>(psumsq), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
@@ -408,26 +436,31 @@ int launch_f32(const void* x, const void* wt, const void* a, const void* b,
 }  // namespace
 
 // dtype: 0 = bf16, 1 = float32. psum, psumsq: (N, ceil(M/128)) float32.
-// bf16 only: tile_n (64 or 128) is the output tile's width and grid the
-// number of persistent blocks. Returns the first non-zero CUDA error of the
-// launch (0 = launched), or -1 for an argument it does not take.
+// bf16 only: tile_n (64, 128 or 256) is the output tile's width and grid the
+// number of persistent blocks; x and wt 16-byte aligned. Returns the first
+// non-zero CUDA error of the launch (0 = launched), or a negative code of
+// wgmma_pipeline.cuh (kBadArgument for an argument it does not take).
 extern "C" int matmul_stats_launch(const void* x, const void* wt,
                                    const void* a, const void* b, void* y,
                                    void* psum, void* psumsq, int M, int K,
                                    int N, int dtype, int normalize, int relu,
                                    int tile_n, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 1 || N < 1 || K % 8 || N % 8) return kBadArgument;
   if (dtype == 0 && grid >= 1) {
+    if (tile_n == 256)
+      return launch_bf16_modes<256>(x, wt, a, b, y, psum, psumsq, M, K, N,
+                                    normalize, relu, grid, s);
     if (tile_n == 128)
       return launch_bf16_modes<128>(x, wt, a, b, y, psum, psumsq, M, K, N,
                                     normalize, relu, grid, s);
     if (tile_n == 64)
       return launch_bf16_modes<64>(x, wt, a, b, y, psum, psumsq, M, K, N,
                                    normalize, relu, grid, s);
-    return -1;
+    return kBadArgument;
   }
   if (dtype == 1)
     return launch_f32(x, wt, a, b, y, psum, psumsq, M, K, N, normalize, relu,
                       s);
-  return -1;
+  return kBadArgument;
 }

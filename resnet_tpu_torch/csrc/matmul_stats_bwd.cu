@@ -20,261 +20,313 @@
 // nothing is resident, so the work is two kernels on one stream, each forming
 // g from tiles of (gy, y), and every shape is taken:
 //
-//   bwd_dx_kernel  a block owns 128 x 128 (or 128 x 64) tiles of dx and
+//   bwd_dx_kernel  a block owns 128-row tiles of dx, 64, 128 or 256 wide, and
 //                  walks N in steps of 64 (A = g, B = Wt as it lies); its
 //                  epilogue reads the x tile once for the mask, the `a`
 //                  fold and the dgamma/dbeta partials, written as
 //                  (K, ceil(M/128)) float32 that the wrapper sums along
 //                  their rows: no separate sweep over the activations.
-//   bwd_dw_kernel  a block owns work items of a 128 x 128 (or 128 x 64)
-//                  tile of dW^T (N, K) and one split of the M rows, walks
-//                  the split in steps of 64 rows (A = g read as g^T, B = act
-//                  recomputed from x), and writes its float32 partial to
-//                  (splits, N, K) scratch that the wrapper sums in a fixed
-//                  order. The wrapper picks the splits so that the items
-//                  fill the card's waves, at most about one wave of them,
-//                  so the partials stay near one wave of tiles.
+//   bwd_dw_kernel  a block owns work items of a 128-row tile of dW^T (N, K),
+//                  64, 128 or 256 wide, and one split of the M rows, walks
+//                  the split in steps of 64 rows (A = g read as g^T, B =
+//                  act), and writes its float32 partial to (splits, N, K)
+//                  scratch that the wrapper sums in a fixed order. The
+//                  wrapper picks the splits so that the items fill the
+//                  card's waves, at most about one wave of them, so the
+//                  partials stay near one wave of tiles.
 //
 // What bounds it on an H100: memory at most ResNet-50 shapes (it must read
 // gy, y, x, W and write dx and dW); the 512x2048 and 1024x2048 shapes are
 // bound by the two products. Both kernels read (gy, y), so those cross device
 // memory (or L2) twice: that is the price of forming g without storing it.
-// What the design does about it (bf16), as in matmul_stats.cu: persistent
-// blocks (one an SM) walk their tiles or work items, a ring of 3
-// shared-memory stages fed by 16-byte cp.async copies runs over the block's
-// whole sequence of (item, step), so the next item's operands load during
-// this one's product and epilogue; XOR-swizzled stages read with ldmatrix
-// (.trans where the operand lies the other way: W in dx, g and act in dW)
-// feed mma.sync m16n8k16 from registers, 8 warps as 4 x 2. The fold of g
-// and the prologue of act run on the fragments in registers, with gs, gss,
-// a and b staged beside each stage; the accumulators stay in registers into
-// the epilogues. No atomics: results are the same from run to run.
+// What the design does about it (bf16), on the Hopper mainloop of
+// wgmma_pipeline.cuh, as in matmul_stats.cu: persistent blocks (one an SM)
+// walk their tiles or work items; a ring of shared-memory stages, fed by
+// TMA copies that one producer thread keeps in flight, runs over the
+// block's whole sequence of (item, step), so the next item's operands load
+// during this one's product and epilogue; two consumer warpgroups, 64 rows
+// of the output tile each, run wgmma m64nNk16 from shared memory with one
+// group in flight. g is formed in place: each warpgroup folds gy, y, gs
+// and gss into its own 64 x 64 box of gy (dx: its 64 rows; dW: its 64
+// columns n), fences it for the asynchronous proxy and meets at its
+// barrier, and the product reads g there: K-major in dx, MN-major (as g^T)
+// in dW. B is read MN-major with the transpose bit: Wt (N, K) as it lies
+// in dx, x (M, K) in dW; where dW needs act = [relu](x*a + b), both
+// warpgroups rewrite the stage's x in place first and meet at one
+// barrier. dx leaves by TMA stores from swizzled staging boxes, the dW
+// partials straight from the accumulators. No atomics: results are the
+// same from run to run. Forming g this way costs both kernels a read of
+// gy and y: a 64-deep stage of a 128 x 128 tile carries 44 operations for
+// each byte it brings from L2 (gy, y and the other operand), a 128 x 256
+// one 65, so the wider tile is taken where it measured faster, and the
+// L2-to-SM rate is what the tiles run into (PERF.md).
 //
 // The float32 kernels (bwd_dx_f32_kernel, bwd_dw_f32_kernel; run only in
 // the parity checks) keep a plain loop: 128 x 64 and 64 x 64 tiles, one
 // buffer, FMAs through a float32 staging tile.
 //
 // dW leaves in the weight's own layout, dW^T (N, K). Rows past M (or past a
-// split's end) count as g = 0; chunks past K or N are zero-filled, so any M
-// and any K, N that are multiples of 8 are taken.
+// split's end) count as g = 0; TMA fills boxes past M, K or N with zeros,
+// so any M and any K, N that are multiples of 8 are taken.
 
-#include "mma_pipeline.cuh"
+#include "wgmma_pipeline.cuh"
 
 namespace {
 
 using namespace rt;
 
-// BM is also ops/matmul_stats_cuda.py's BLOCK_ROWS; kRedStep its DW_ROW_STEP
+// BM is also ops/matmul_stats_cuda.py's BLOCK_ROWS; kBK its DW_ROW_STEP
+// (the rows of a dW stage) and the N depth of a dx stage.
 constexpr int BM = 128;
-constexpr int kRedStep = 64;  // depth of a stage: N for dx, M rows for dW
-constexpr int kDxStages = 3, kDwStages = 3;  // ring stages of each kernel
+// ring stages of each kernel (ops/matmul_stats_cuda.py::smem_bytes
+// mirrors these budgets): dx 3; dW 4, 3 at the 256-wide tile
+constexpr int kDxStages = 3;
 
-// zero the halves of a bf16x2 register whose element is not kept
-__device__ __forceinline__ uint32_t keep2(uint32_t v, bool lo, bool hi) {
-  return v & ((lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u));
+// gs and 2*gss (see fold2) of 8 columns from n on; zeros past N, where gy
+// and y are zero-filled, so g = 0 there (N % 8 == 0: a chunk is in or out)
+__device__ __forceinline__ void load_fold_consts(const float* gs,
+                                                 const float* gss, int n,
+                                                 int N, float (&s2)[8],
+                                                 float (&q2)[8]) {
+  load8(s2, gs, n, n < N);
+  load8(q2, gss, n, n < N);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q2[e] *= 2.0f;
 }
 
 // ---------------------------------------------------------------------------
 // bf16 dx: dx (M, K) = g (M, N) @ Wt (N, K), with the BatchNorm epilogue
 // ---------------------------------------------------------------------------
 
-template <int BKO>
+template <int BKO, bool NORMALIZE>
 struct DxSmem {
-  static constexpr int WTN = BKO / kWarpsN;
-  static constexpr int CPR_G = kRedStep / 8, CPR_W = BKO / 8;
-  static constexpr int G = BM * kRedStep, W = kRedStep * BKO;  // elements
-  static constexpr int STAGE = (2 * G + W) * 2 + 2 * kRedStep * 4;  // +gs,gss
+  // columns a store pass: a quarter of the 256-wide tile, for room
+  static constexpr int SW = BKO == 256 ? 64 : BKO;
+  static constexpr int G = BM * kBK * 2, W = kBK * BKO * 2;  // bytes
+  static constexpr int STAGE = 2 * G + W;                    // gy, y, Wt
   static constexpr int RING = kDxStages * STAGE;
-  static constexpr int OUT = kThreads / 32 * warp_stage_bytes<WTN>();
-  static constexpr int RED = 2 * kWarpsM * BKO * 4;
-  static constexpr int BYTES = RING + OUT + RED;
+  static constexpr int OUT = BM * SW * 2;  // dx's swizzled staging boxes
+  static constexpr int RED = 2 * kConsumerWarps * BKO * 4;  // dgamma, dbeta
+  // the tile's x and its columns' a, b, inv, minv for the BatchNorm
+  // epilogue, copied by TMA (there is no room for them beside the
+  // 256-wide ring: the prologue takes 128 at most)
+  static constexpr int XT = NORMALIZE ? BM * BKO * 2 + 4 * BKO * 4 : 0;
+  static constexpr int BARS = 2 * kDxStages * 8 + (NORMALIZE ? 16 : 0);
+  static constexpr int BYTES = kAtomBytes + RING + OUT + RED + XT + BARS;
+  static_assert(STAGE % kAtomBytes == 0, "stages stay atom-aligned");
+  static_assert(!NORMALIZE || BKO <= 128, "no room for x's tile");
+  static_assert(BYTES <= 232448, "over the block's shared memory");
 };
 
-// __launch_bounds__(256, 2) caps a thread at 128 registers; shared memory
-// keeps one block on an SM.
 template <int BKO, bool NORMALIZE, bool RELU>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dx_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
-              const bf16* __restrict__ x, const bf16* __restrict__ wt,
-              const float* __restrict__ gs, const float* __restrict__ gss,
-              const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ inv, const float* __restrict__ minv,
-              bf16* __restrict__ dx, float* __restrict__ pdgamma,
+__global__ void __launch_bounds__(kBlockThreads, 1)
+bwd_dx_kernel(const __grid_constant__ CUtensorMap gy_map,
+              const __grid_constant__ CUtensorMap y_map,
+              const __grid_constant__ CUtensorMap wt_map,
+              const __grid_constant__ CUtensorMap dx_map,
+              const __grid_constant__ CUtensorMap x_map,
+              const float* __restrict__ gs,
+              const float* __restrict__ gss, const float* __restrict__ a,
+              const float* __restrict__ b, const float* __restrict__ inv,
+              const float* __restrict__ minv, float* __restrict__ pdgamma,
               float* __restrict__ pdbeta, int M, int K, int N) {
-  using S = DxSmem<BKO>;
-  constexpr int WTN = S::WTN, NJ = WTN / 8;
-  constexpr int CPR_G = S::CPR_G, CPR_W = S::CPR_W;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
-  bf16* out_stage = reinterpret_cast<bf16*>(
-      smem + S::RING + warp * warp_stage_bytes<WTN>());
+  using S = DxSmem<BKO, NORMALIZE>;
+  constexpr int R = BKO / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_atoms(smem_raw);
   float* red = reinterpret_cast<float*>(smem + S::RING + S::OUT);
+  unsigned char* xtile = smem + S::RING + S::OUT + S::RED;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + S::RING + S::OUT + S::RED + S::XT);
+  uint64_t* empty = full + kDxStages;
+  uint64_t* xfull = empty + kDxStages;  // x's tile, with the prologue
+  uint64_t* xempty = xfull + 1;
 
-  const int tiles_k = (K + BKO - 1) / BKO, tiles_m = (M + BM - 1) / BM;
+  const int tiles_k = cdiv(K, BKO), tiles_m = cdiv(M, BM);
   const int tiles = tiles_m * tiles_k;
-  const int nsteps = (N + kRedStep - 1) / kRedStep;
+  const int nsteps = cdiv(N, kBK);
   const int my_tiles = (int)blockIdx.x < tiles
                            ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                            : 0;
   const int steps = my_tiles * nsteps;
 
-  auto load_stage = [&](int p) {
-    if (p < steps) {
-      // this thread's chunk coordinates, recomputed each step rather than
-      // held in registers across the loop: the empty asm hides tid's value,
-      // so the compiler cannot hoist them (with them hoisted, the 128
-      // registers a thread has spill)
-      int tid = threadIdx.x;
-      asm volatile("" : "+r"(tid));
-      const int tile = blockIdx.x + (p / nsteps) * gridDim.x;
-      const int n0 = (p % nsteps) * kRedStep;
-      const int m0 = tile / tiles_k * BM, k0 = tile % tiles_k * BKO;
-      bf16* Gys = reinterpret_cast<bf16*>(smem + p % kDxStages * S::STAGE);
-      bf16* Ys = Gys + S::G;
-      bf16* Ws = Ys + S::G;
-      float* vec = reinterpret_cast<float*>(Ws + S::W);
-#pragma unroll
-      for (int it = 0; it < BM * CPR_G / kThreads; ++it) {
-        const int c = tid + it * kThreads, r = c / CPR_G, nc = c % CPR_G;
-        const bool ok = (m0 + r < M) && (n0 + nc * 8 < N);
-        const size_t at = (size_t)(m0 + r) * N + n0 + nc * 8;
-        cp_async16(Gys + swz<CPR_G>(r, nc), gy + at, ok, gy);
-        cp_async16(Ys + swz<CPR_G>(r, nc), y + at, ok, y);
-      }
-#pragma unroll
-      for (int it = 0; it < kRedStep * CPR_W / kThreads; ++it) {
-        const int c = tid + it * kThreads, r = c / CPR_W, kc = c % CPR_W;
-        const bool ok = (n0 + r < N) && (k0 + kc * 8 < K);
-        cp_async16(Ws + swz<CPR_W>(r, kc),
-                   wt + (size_t)(n0 + r) * K + k0 + kc * 8, ok, wt);
-      }
-      if (tid < 2 * kRedStep / 4) {  // gs then gss, 4 floats a chunk
-        const int q = tid / (kRedStep / 4), nc = (tid % (kRedStep / 4)) * 4;
-        cp_async16(vec + q * kRedStep + nc, (q ? gss : gs) + n0 + nc,
-                   n0 + nc < N, gs);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    cp_async_commit();
-  };
+    if (NORMALIZE) {
+      mbar_init(xfull, 1);
+      mbar_init(xempty, kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int a_base = a_frag_base<CPR_G>(wm * kWarpRows, lane);
-  const int bt_base = bt_frag_base<CPR_W>(wn * WTN / 8, lane);
-  float acc[kMI][NJ][4];
+  if (threadIdx.x < kWgThreads) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < steps; ++p) {
+        const int s = p % kDxStages;
+        mbar_wait(&empty[s], ((p / kDxStages) & 1) ^ 1);
+        const int tile = blockIdx.x + (p / nsteps) * gridDim.x;
+        const int n0 = (p % nsteps) * kBK;
+        const int m0 = tile / tiles_k * BM, k0 = tile % tiles_k * BKO;
+        unsigned char* st = smem + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
 #pragma unroll
-  for (int p = 0; p < kDxStages - 1; ++p) load_stage(p);
-
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kDxStages - 2>();
-    __syncthreads();
-    load_stage(step + kDxStages - 1);
-    const int ns = step % nsteps;
-    if (ns == 0) zero(acc);
-    const bf16* Gys =
-        reinterpret_cast<const bf16*>(smem + step % kDxStages * S::STAGE);
-    const bf16* Ys = Gys + S::G;
-    const bf16* Ws = Ys + S::G;
-    const float* vec = reinterpret_cast<const float*>(Ws + S::W);
+        for (int i = 0; i < 2; ++i) {
+          tma_box(st + i * kBoxBytes, &gy_map, &full[s], n0, m0 + 64 * i);
+          tma_box(st + S::G + i * kBoxBytes, &y_map, &full[s], n0,
+                  m0 + 64 * i);
+        }
 #pragma unroll
-    for (int kk = 0; kk < kRedStep / 16; ++kk) {
-      // both g fragments first, then the W fragments a pair of 8-column
-      // blocks at a time: few registers live at once
-      const int n = kk * 16 + 2 * t;
-      const float2 slo = *reinterpret_cast<const float2*>(vec + n);
-      const float2 shi = *reinterpret_cast<const float2*>(vec + n + 8);
-      float2 qlo = *reinterpret_cast<const float2*>(vec + kRedStep + n);
-      float2 qhi = *reinterpret_cast<const float2*>(vec + kRedStep + n + 8);
-      qlo.x *= 2.0f;  // 2*gss: see fold2
-      qlo.y *= 2.0f;
-      qhi.x *= 2.0f;
-      qhi.y *= 2.0f;
-      uint32_t af[kMI][4];
+        for (int i = 0; i < BKO / 64; ++i)
+          tma_box(st + 2 * S::G + i * kBoxBytes, &wt_map, &full[s],
+                  k0 + 64 * i, n0);
+        if (NORMALIZE && p % nsteps == min(kDxStages, nsteps - 1)) {
+          // the tile's x and constants, once the last tile's epilogue has
+          // read its own: from this step on the consumers are into this
+          // tile, and the copies have the rest of its steps to land
+          const int it = p / nsteps;
+          const int cols = min(BKO, K - k0);  // K % 8 == 0: 32-byte runs
+          mbar_wait(xempty, (it & 1) ^ 1);
+          mbar_expect_tx(xfull, BM * BKO * 2 + 4 * cols * 4);
 #pragma unroll
-      for (int i = 0; i < kMI; ++i) {
-        const int off = (a_base ^ (kk << 4)) + i * 16 * kRedStep;
-        uint32_t yf[4];
-        ldsm_x4(af[i], Gys + off);
-        ldsm_x4(yf, Ys + off);
-        af[i][0] = fold2(af[i][0], yf[0], slo.x, slo.y, qlo.x, qlo.y);
-        af[i][1] = fold2(af[i][1], yf[1], slo.x, slo.y, qlo.x, qlo.y);
-        af[i][2] = fold2(af[i][2], yf[2], shi.x, shi.y, qhi.x, qhi.y);
-        af[i][3] = fold2(af[i][3], yf[3], shi.x, shi.y, qhi.x, qhi.y);
-      }
+          for (int rb = 0; rb < 2; ++rb)
 #pragma unroll
-      for (int jj = 0; jj < NJ / 2; ++jj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, Ws + (bt_base ^ (jj << 4)) + kk * 16 * BKO);
+            for (int cb = 0; cb < BKO / 64; ++cb)
+              tma_box(xtile + (rb * (BKO / 64) + cb) * kBoxBytes, &x_map,
+                      xfull, k0 + 64 * cb, m0 + 64 * rb);
+          const float* vecs[4] = {a, b, inv, minv};
 #pragma unroll
-        for (int i = 0; i < kMI; ++i) {
-          mma_bf16(acc[i][2 * jj], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * jj + 1], af[i], r[2], r[3]);
+          for (int v = 0; v < 4; ++v)
+            bulk_copy(xtile + BM * BKO * 2 + v * BKO * 4, vecs[v] + k0,
+                      cols * 4, xfull);
         }
       }
     }
-    if (ns != nsteps - 1) continue;
+    return;
+  }
 
-    // Epilogue of the tile. Rows past M hold g = gs, not 0: they are masked
-    // out of the dgamma/dbeta sums and not stored.
-    const int tile = blockIdx.x + (step / nsteps) * gridDim.x;
-    const int tm = tile / tiles_k, m0 = tm * BM, k0 = tile % tiles_k * BKO;
-    if constexpr (NORMALIZE) {
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - kWgThreads;
+  const int cw = ct >> 5, cg = cw >> 2;
+  const int wt = ct & (kWgThreads - 1);
+  const int lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = 64 * cg + 16 * (cw & 3);
+  unsigned char* staging = smem + S::RING + cg * (S::OUT / 2);
+  float acc[R];
+
+  // tiles outside, a uniform loop over the N steps inside, as in
+  // matmul_stats.cu
+  int p = 0, it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    for (int ns = 0; ns < nsteps; ++ns, ++p) {
+      const int s = p % kDxStages;
+      // gs and 2*gss of the thread's 8 columns, read before the stage
+      // arrives
+      float s2[8], q2[8];
+      load_fold_consts(gs, gss, ns * kBK + 8 * (wt & 7), N, s2, q2);
+      unsigned char* st = smem + s * S::STAGE;
+      mbar_wait(&full[s], (p / kDxStages) & 1);
+      // g in place of gy in the warpgroup's box (its 64 rows); rows past M
+      // hold g = gs: the epilogue masks them out and does not store them
+      unsigned char* gy_box = st + cg * kBoxBytes;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int k = k0 + wn * WTN + 8 * j + 2 * t;
-        const bool col_ok = k < K;  // K % 8 == 0: k + 1 < K too
+      for (int c = wt; c < kBoxChunks; c += kWgThreads)
+        fold_chunk(reinterpret_cast<uint4*>(gy_box + box_chunk(c)),
+                   reinterpret_cast<const uint4*>(gy_box + S::G + box_chunk(c)),
+                   s2, q2, true);
+      fence_async_smem();
+      wg_sync(cg);
+      // A = g (K-major); B = Wt (n rows, k columns): MN-major, 64-column
+      // boxes 8 KB apart, a 16-deep step 16 rows (2048 bytes) further
+      const uint64_t da = sw128_desc(st + cg * kBoxBytes, 0, kAtomBytes);
+      const uint64_t db = sw128_desc(st + 2 * S::G, kBoxBytes, kAtomBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(acc, da + 2 * kk, db + 128 * kk, ns > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lane == 0 && ns > 0) mbar_arrive(&empty[(p - 1) % kDxStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(p - 1) % kDxStages]);
+
+    // Epilogue of the tile: the mask, the `a` fold and the dgamma/dbeta
+    // partials from one read of x, on each column block's values on their
+    // way to the staging boxes; dx leaves by TMA stores.
+    const int tm = tile / tiles_k, m0 = tm * BM, k0 = tile % tiles_k * BKO;
+    auto epilogue = [&](int j, float(&v)[2][2]) {
+      if constexpr (NORMALIZE) {
+        const int kt = 8 * j + 2 * t;  // within the tile
+        const bool col_ok = k0 + kt < K;  // K % 8 == 0: kt + 1 too
+        // a, b, inv, minv of the column pair, copied beside x's tile
+        const float* cv = reinterpret_cast<const float*>(xtile + BM * BKO * 2);
         float2 av = make_float2(0.f, 0.f), bv = av, iv = av, mv = av;
         if (col_ok) {
-          av = __ldg(reinterpret_cast<const float2*>(a + k));
-          bv = __ldg(reinterpret_cast<const float2*>(b + k));
-          iv = __ldg(reinterpret_cast<const float2*>(inv + k));
-          mv = __ldg(reinterpret_cast<const float2*>(minv + k));
+          av = *reinterpret_cast<const float2*>(cv + kt);
+          bv = *reinterpret_cast<const float2*>(cv + BKO + kt);
+          iv = *reinterpret_cast<const float2*>(cv + 2 * BKO + kt);
+          mv = *reinterpret_cast<const float2*>(cv + 3 * BKO + kt);
         }
         float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // dgamma, dbeta
 #pragma unroll
-        for (int i = 0; i < kMI; ++i)
+        for (int h = 0; h < 2; ++h) {
+          // rows past M hold g = gs, not 0: masked out here, not stored
+          const int row = wrow + 8 * h + g;  // within the tile
+          const bool ok = (m0 + row < M) && col_ok;
+          // x (row, 8j + 2t, +1) in the tile's swizzled boxes; zeros
+          // outside the matrix
+          const float2 xv = bf2_to_f2(*reinterpret_cast<const uint32_t*>(
+              xtile + ((row >> 6) * (BKO / 64) + (j >> 3)) * kBoxBytes +
+              (row & 63) * 128 + ((((j & 7) ^ g) & 7) << 4) + 4 * t));
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0 + wm * kWarpRows + 16 * i + 8 * h + g;
-            const bool ok = (row < M) && col_ok;
-            uint32_t xr = 0u;
-            if (ok) xr = __ldg(reinterpret_cast<const unsigned int*>(
-                        x + (size_t)row * K + k));
-            const float2 xv = bf2_to_f2(xr);
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float xe = e ? xv.y : xv.x, ae = e ? av.y : av.x;
-              const float xh = mul_add(xe, ae, e ? bv.y : bv.x);
-              float gxh = acc[i][j][2 * h + e];
-              if (!ok || (RELU && !(xh > 0.0f))) gxh = 0.0f;
-              const float xhat = mul_add(xe, e ? iv.y : iv.x, e ? mv.y : mv.x);
-              part[0][e] = fmaf(gxh, xhat, part[0][e]);
-              part[1][e] += gxh;
-              acc[i][j][2 * h + e] = __fmul_rn(gxh, ae);
-            }
+          for (int e = 0; e < 2; ++e) {
+            const float xe = e ? xv.y : xv.x, ae = e ? av.y : av.x;
+            const float xh = mul_add(xe, ae, e ? bv.y : bv.x);
+            float gxh = v[h][e];
+            if (!ok || (RELU && !(xh > 0.0f))) gxh = 0.0f;
+            const float xhat = mul_add(xe, e ? iv.y : iv.x, e ? mv.y : mv.x);
+            part[0][e] = fmaf(gxh, xhat, part[0][e]);
+            part[1][e] += gxh;
+            v[h][e] = __fmul_rn(gxh, ae);
           }
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float dg = sum_over_rows(part[0][e]);
-          const float db = sum_over_rows(part[1][e]);
+          const float db_ = sum_over_rows(part[1][e]);
           if (g == 0) {
-            const int col = wn * WTN + 8 * j + 2 * t + e;
-            red[wm * BKO + col] = dg;
-            red[(kWarpsM + wm) * BKO + col] = db;
+            const int col = 8 * j + 2 * t + e;
+            red[cw * BKO + col] = dg;
+            red[(kConsumerWarps + cw) * BKO + col] = db_;
           }
         }
       }
-    }
-    store_warp_tile<WTN>(acc, out_stage, dx, m0 + wm * kWarpRows,
-                         k0 + wn * WTN, M, K);
+    };
+    if (NORMALIZE) mbar_wait(xfull, it & 1);
+    store_rows<BKO, S::SW>(acc, epilogue, &dx_map, staging, wt, cg,
+                           16 * (cw & 3), k0, m0 + 64 * cg);
+    if (NORMALIZE && lane == 0) mbar_arrive(xempty);  // x's tile is read
     if constexpr (NORMALIZE) {
-      __syncthreads();
-      const float sum = reduce_warp_rows<BKO, 2>(red);
-      if (tid < 2 * BKO && k0 + tid % BKO < K)
-        (tid < BKO ? pdgamma : pdbeta)[(size_t)(k0 + tid % BKO) * tiles_m +
-                                       tm] = sum;
+      consumer_sync();  // every warp's partials are in `red`
+      for (int c = ct; c < 2 * BKO; c += 2 * kWgThreads) {
+        const int qn = c / BKO, col = c % BKO;
+        float total = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kConsumerWarps; ++w)
+          total += red[(qn * kConsumerWarps + w) * BKO + col];
+        if (k0 + col < K)
+          (qn ? pdbeta : pdgamma)[(size_t)(k0 + col) * tiles_m + tm] = total;
+      }
+      consumer_sync();  // `red` is read before the next tile writes it
     }
   }
-  cp_async_wait<0>();
+  if (wt == 0) bulk_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -285,190 +337,174 @@ constexpr int kDwBN = 128;  // rows of a dW^T tile (N)
 
 template <int BKO>
 struct DwSmem {
-  static constexpr int WTN = BKO / kWarpsN;
-  static constexpr int CPR_G = kDwBN / 8, CPR_X = BKO / 8;
-  static constexpr int G = kRedStep * kDwBN, X = kRedStep * BKO;  // elements
-  // + gs, gss (kDwBN each), a, b (BKO each)
-  static constexpr int STAGE = (2 * G + X) * 2 + (2 * kDwBN + 2 * BKO) * 4;
-  static constexpr int BYTES = kDwStages * STAGE;
+  static constexpr int STAGES = BKO == 256 ? 3 : 4;
+  static constexpr int G = kBK * kDwBN * 2, X = kBK * BKO * 2;  // bytes
+  static constexpr int STAGE = 2 * G + X;                       // gy, y, x
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BARS = 2 * STAGES * 8;
+  static constexpr int BYTES = kAtomBytes + RING + BARS;
+  static_assert(STAGE % kAtomBytes == 0, "stages stay atom-aligned");
+  static_assert(BYTES <= 232448, "over the block's shared memory");
 };
 
 template <int BKO, bool NORMALIZE, bool RELU>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dw_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
-              const bf16* __restrict__ x, const float* __restrict__ gs,
-              const float* __restrict__ gss, const float* __restrict__ a,
-              const float* __restrict__ b, float* __restrict__ dwt_part,
-              int M, int K, int N, int splits, int rows_per_split) {
+__global__ void __launch_bounds__(kBlockThreads, 1)
+bwd_dw_kernel(const __grid_constant__ CUtensorMap gy_map,
+              const __grid_constant__ CUtensorMap y_map,
+              const __grid_constant__ CUtensorMap x_map,
+              const float* __restrict__ gs, const float* __restrict__ gss,
+              const float* __restrict__ a, const float* __restrict__ b,
+              float* __restrict__ dwt_part, int M, int K, int N, int splits,
+              int rows_per_split) {
   using S = DwSmem<BKO>;
-  constexpr int WTN = S::WTN, NJ = WTN / 8;
-  constexpr int CPR_G = S::CPR_G, CPR_X = S::CPR_X;
-  constexpr int NVEC = (2 * kDwBN + 2 * BKO) / 4;  // vector chunks a stage
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
+  constexpr int R = BKO / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_atoms(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::RING);
+  uint64_t* empty = full + S::STAGES;
 
-  const int tiles_k = (K + BKO - 1) / BKO;
-  const int tiles = (N + kDwBN - 1) / kDwBN * tiles_k;
+  const int tiles_k = cdiv(K, BKO);
+  const int tiles = cdiv(N, kDwBN) * tiles_k;
   const int items = tiles * splits;
-  const int msteps = rows_per_split / kRedStep;
+  const int msteps = rows_per_split / kBK;
   const int my_items = (int)blockIdx.x < items
                            ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                            : 0;
   const int steps = my_items * msteps;
   // item -> (tile, split): consecutive items share rows, so blocks that run
-  // together read the same rows of gy, y and x
+  // together read the same rows of gy, y and x. A step wholly past M (in
+  // the last split) is skipped by producer and consumers alike and takes no
+  // stage.
   auto item_of = [&](int p) { return blockIdx.x + (p / msteps) * gridDim.x; };
 
-  auto load_stage = [&](int p) {
-    if (p < steps) {
-      // this thread's chunk coordinates, recomputed each step rather than
-      // held in registers across the loop: the empty asm hides tid's value,
-      // so the compiler cannot hoist them (with them hoisted, the 128
-      // registers a thread has spill)
-      int tid = threadIdx.x;
-      asm volatile("" : "+r"(tid));
-      const int item = item_of(p), tile = item % tiles, split = item / tiles;
-      const int n0 = tile / tiles_k * kDwBN, k0 = tile % tiles_k * BKO;
-      const int m_end = min(M, (split + 1) * rows_per_split);
-      const int m0 = split * rows_per_split + (p % msteps) * kRedStep;
-      if (m0 < m_end) {  // a step wholly past the split's end loads nothing
-        bf16* Gys = reinterpret_cast<bf16*>(smem + p % kDwStages * S::STAGE);
-        bf16* Ys = Gys + S::G;
-        bf16* Xs = Ys + S::G;
-        float* vec = reinterpret_cast<float*>(Xs + S::X);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int q = 0;  // stages used
+      for (int p = 0; p < steps; ++p) {
+        const int item = item_of(p), tile = item % tiles;
+        const int m0 = item / tiles * rows_per_split + (p % msteps) * kBK;
+        if (m0 >= M) continue;
+        const int s = q % S::STAGES;
+        mbar_wait(&empty[s], ((q / S::STAGES) & 1) ^ 1);
+        ++q;
+        const int n0 = tile / tiles_k * kDwBN, k0 = tile % tiles_k * BKO;
+        unsigned char* st = smem + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
 #pragma unroll
-        for (int it = 0; it < kRedStep * CPR_G / kThreads; ++it) {
-          const int c = tid + it * kThreads, r = c / CPR_G, nc = c % CPR_G;
-          const bool ok = (m0 + r < m_end) && (n0 + nc * 8 < N);
-          const size_t at = (size_t)(m0 + r) * N + n0 + nc * 8;
-          cp_async16(Gys + swz<CPR_G>(r, nc), gy + at, ok, gy);
-          cp_async16(Ys + swz<CPR_G>(r, nc), y + at, ok, y);
+        for (int i = 0; i < 2; ++i) {
+          tma_box(st + i * kBoxBytes, &gy_map, &full[s], n0 + 64 * i, m0);
+          tma_box(st + S::G + i * kBoxBytes, &y_map, &full[s], n0 + 64 * i,
+                  m0);
         }
 #pragma unroll
-        for (int it = 0; it < kRedStep * CPR_X / kThreads; ++it) {
-          const int c = tid + it * kThreads, r = c / CPR_X, kc = c % CPR_X;
-          const bool ok = (m0 + r < m_end) && (k0 + kc * 8 < K);
-          cp_async16(Xs + swz<CPR_X>(r, kc),
-                     x + (size_t)(m0 + r) * K + k0 + kc * 8, ok, x);
-        }
-        // vec: gs (kDwBN), gss (kDwBN), then a (BKO), b (BKO)
-        if (tid < NVEC) {
-          const int f = tid * 4;
-          const float* src;
-          int at, lim;
-          if (f < 2 * kDwBN) {
-            src = f < kDwBN ? gs : gss;
-            at = n0 + f % kDwBN;
-            lim = N;
-          } else {
-            const int fk = f - 2 * kDwBN;
-            src = fk < BKO ? a : b;
-            at = k0 + fk % BKO;
-            lim = K;
-          }
-          if (NORMALIZE || f < 2 * kDwBN)
-            cp_async16(vec + f, src + at, at < lim, gs);
-        }
+        for (int i = 0; i < BKO / 64; ++i)
+          tma_box(st + 2 * S::G + i * kBoxBytes, &x_map, &full[s],
+                  k0 + 64 * i, m0);
       }
     }
-    cp_async_commit();
-  };
+    return;
+  }
 
-  const int at_base = at_frag_base<CPR_G>(wm * kWarpRows / 8, lane);
-  const int bt_base = bt_frag_base<CPR_X>(wn * WTN / 8, lane);
-  float acc[kMI][NJ][4];
-#pragma unroll
-  for (int p = 0; p < kDwStages - 1; ++p) load_stage(p);
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - kWgThreads;
+  const int cw = ct >> 5, cg = cw >> 2;
+  const int wt = ct & (kWgThreads - 1);
+  const int lane = ct & 31, g = lane >> 2, t = lane & 3;
+  // the warp's 16 rows of dW^T (n) within the tile
+  const int nrow = 64 * cg + 16 * (cw & 3);
+  // act: the thread's one 8-column chunk of x, across both warpgroups
+  constexpr int CH = BKO / 8;
+  const int kchunk = ct % CH;
+  float acc[R];
+  float s2[8], q2[8];  // gs, 2*gss of the thread's 8 columns n of its box
+  float ak[8], bk[8];  // a, b of its chunk of x
+  int q = 0;  // stages used
 
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kDwStages - 2>();
-    __syncthreads();
-    load_stage(step + kDwStages - 1);
-    const int ms = step % msteps;
-    if (ms == 0) zero(acc);
-    const int item = item_of(step), tile = item % tiles, split = item / tiles;
+  // items outside, a uniform loop over the split's steps inside, as in
+  // matmul_stats.cu; a step wholly past M ends the item
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = item % tiles, split = item / tiles;
+    const int n0 = tile / tiles_k * kDwBN, k0 = tile % tiles_k * BKO;
     const int m_end = min(M, (split + 1) * rows_per_split);
-    const int m0 = split * rows_per_split + ms * kRedStep;
-    if (m0 < m_end) {
-      const bf16* Gys =
-          reinterpret_cast<const bf16*>(smem + step % kDwStages * S::STAGE);
-      const bf16* Ys = Gys + S::G;
-      const bf16* Xs = Ys + S::G;
-      const float* vec = reinterpret_cast<const float*>(Xs + S::X);
-      const bool partial = m0 + kRedStep > m_end;
-      // unrolled by 2, not 4: fully unrolled, its hoisted loads spill
-#pragma unroll 2
-      for (int kk = 0; kk < kRedStep / 16; ++kk) {
-        // A = g^T first: rows n (gs, gss per row), columns m
-        const int mr = m0 + kk * 16 + 2 * t;  // m of regs 0, 1; +8 of 2, 3
-        uint32_t af[kMI][4];
-#pragma unroll
-        for (int i = 0; i < kMI; ++i) {
-          const int nlo = wm * kWarpRows + 16 * i + g, nhi = nlo + 8;
-          const float slo = vec[nlo], shi = vec[nhi];
-          const float qlo = 2.0f * vec[kDwBN + nlo];  // 2*gss: see fold2
-          const float qhi = 2.0f * vec[kDwBN + nhi];
-          const int off = (at_base ^ (i << 4)) + kk * 16 * kDwBN;
-          uint32_t yf[4];
-          ldsm_x4_trans(af[i], Gys + off);
-          ldsm_x4_trans(yf, Ys + off);
-          af[i][0] = fold2(af[i][0], yf[0], slo, slo, qlo, qlo);
-          af[i][1] = fold2(af[i][1], yf[1], shi, shi, qhi, qhi);
-          af[i][2] = fold2(af[i][2], yf[2], slo, slo, qlo, qlo);
-          af[i][3] = fold2(af[i][3], yf[3], shi, shi, qhi, qhi);
-          if (partial) {  // rows past the split's end: g = 0, not gs
-            af[i][0] = keep2(af[i][0], mr < m_end, mr + 1 < m_end);
-            af[i][1] = keep2(af[i][1], mr < m_end, mr + 1 < m_end);
-            af[i][2] = keep2(af[i][2], mr + 8 < m_end, mr + 9 < m_end);
-            af[i][3] = keep2(af[i][3], mr + 8 < m_end, mr + 9 < m_end);
-          }
-        }
-        // then B = act, [m][k] read with .trans, a pair of 8-column blocks
-        // at a time; the prologue's a, b belong to the fragment's column
-        // k = g of each block
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) {
-          uint32_t r[4];
-          ldsm_x4_trans(r, Xs + (bt_base ^ (jj << 4)) + kk * 16 * BKO);
-          if constexpr (NORMALIZE) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int k = wn * WTN + 16 * jj + 8 * h + g;
-              const float ak = vec[2 * kDwBN + k];
-              const float bk = vec[2 * kDwBN + BKO + k];
-              r[2 * h] = prologue2<RELU>(r[2 * h], ak, ak, bk, bk);
-              r[2 * h + 1] = prologue2<RELU>(r[2 * h + 1], ak, ak, bk, bk);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kMI; ++i) {
-            mma_bf16(acc[i][2 * jj], af[i], r[0], r[1]);
-            mma_bf16(acc[i][2 * jj + 1], af[i], r[2], r[3]);
-          }
-        }
-      }
+    load_fold_consts(gs, gss, n0 + 64 * cg + 8 * (wt & 7), N, s2, q2);
+    if constexpr (NORMALIZE) {
+      const int k = k0 + 8 * kchunk;
+      load8(ak, a, k, k < K);  // K % 8 == 0: the chunk is in or out
+      load8(bk, b, k, k < K);
     }
-    if (ms != msteps - 1) continue;
+    for (int ms = 0; ms < msteps; ++ms, ++q) {
+      const int m0 = split * rows_per_split + ms * kBK;
+      if (m0 >= m_end) break;
+      const int s = q % S::STAGES;
+      unsigned char* st = smem + s * S::STAGE;
+      mbar_wait(&full[s], (q / S::STAGES) & 1);
+      // g in place of gy in the warpgroup's box (its 64 columns n, the
+      // stage's 64 rows m); rows past the split's end: g = 0, not gs
+      unsigned char* gy_box = st + cg * kBoxBytes;
+#pragma unroll
+      for (int c = wt; c < kBoxChunks; c += kWgThreads)
+        fold_chunk(reinterpret_cast<uint4*>(gy_box + box_chunk(c)),
+                   reinterpret_cast<const uint4*>(gy_box + S::G + box_chunk(c)),
+                   s2, q2, m0 + (c >> 3) < m_end);
+      unsigned char* xs = st + 2 * S::G;
+      if constexpr (NORMALIZE) {
+        // act = [relu](x*a + b) in place of x, which both warpgroups read:
+        // the thread's chunk kchunk of its rows
+#pragma unroll
+        for (int i = 0; i < 64 * CH / (2 * kWgThreads); ++i)
+          prologue_chunk<RELU>(
+              reinterpret_cast<uint4*>(
+                  xs + box_chunk((kchunk >> 3) * kBoxChunks +
+                                 (ct / CH + i * (2 * kWgThreads / CH)) * 8 +
+                                 (kchunk & 7))),
+              ak, bk);
+        fence_async_smem();
+        consumer_sync();
+      } else {
+        fence_async_smem();
+        wg_sync(cg);
+      }
+      // A = g^T: the warpgroup's box read MN-major (n along its rows, m
+      // down them); B = x (or act): MN-major, 64-column boxes 8 KB apart.
+      // A 16-deep step (16 rows m) is 2048 bytes further in both.
+      const uint64_t da = sw128_desc(st + cg * kBoxBytes, 0, kAtomBytes);
+      const uint64_t db = sw128_desc(xs, kBoxBytes, kAtomBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(acc, da + 128 * kk, db + 128 * kk, ms > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lane == 0 && ms > 0) mbar_arrive(&empty[(q - 1) % S::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(q - 1) % S::STAGES]);
 
     // Epilogue of the item: its float32 partial, straight from registers
-    const int n0 = tile / tiles_k * kDwBN, k0 = tile % tiles_k * BKO;
     float* out = dwt_part + (size_t)split * N * K;
 #pragma unroll
-    for (int i = 0; i < kMI; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + nrow + 8 * h + g;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = n0 + wm * kWarpRows + 16 * i + 8 * h + g;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int k = k0 + wn * WTN + 8 * j + 2 * t;
-          if (n < N && k < K)
-            *reinterpret_cast<float2*>(out + (size_t)n * K + k) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
+      for (int j = 0; j < BKO / 8; ++j) {
+        const int k = k0 + 8 * j + 2 * t;
+        if (n < N && k < K)
+          *reinterpret_cast<float2*>(out + (size_t)n * K + k) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
+    }
   }
-  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -755,42 +791,60 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
+// The bf16 kernels' tensor maps: gy and y (M, N), Wt (N, K), x and dx
+// (M, K).
+struct Maps {
+  CUtensorMap gy, y, wt, x, dx;
+};
+
 template <int BKO, bool NORMALIZE, bool RELU>
-int launch_dx_bf16(const BwdArgs& p) {
+int launch_dx_bf16(const BwdArgs& p, const Maps& m) {
   auto kernel = bwd_dx_kernel<BKO, NORMALIZE, RELU>;
-  constexpr int bytes = DxSmem<BKO>::BYTES;
+  constexpr int bytes = DxSmem<BKO, NORMALIZE>::BYTES;
   static bool smem_set[kMaxDevices] = {};
   const int err = allow_dynamic_smem(kernel, bytes, smem_set);
   if (err != 0) return err;
-  kernel<<<p.dx_grid, kThreads, bytes, p.stream>>>(
-      static_cast<const bf16*>(p.gy), static_cast<const bf16*>(p.y),
-      static_cast<const bf16*>(p.x), static_cast<const bf16*>(p.wt), p.gs,
-      p.gss, p.a, p.b, p.inv, p.minv, static_cast<bf16*>(p.dx), p.pdgamma,
-      p.pdbeta, p.M, p.K, p.N);
+  kernel<<<p.dx_grid, kBlockThreads, bytes, p.stream>>>(
+      m.gy, m.y, m.wt, m.dx, m.x, p.gs, p.gss, p.a, p.b, p.inv, p.minv,
+      p.pdgamma, p.pdbeta, p.M, p.K, p.N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BKO, bool NORMALIZE, bool RELU>
-int launch_dw_bf16(const BwdArgs& p) {
+int launch_dw_bf16(const BwdArgs& p, const Maps& m) {
   auto kernel = bwd_dw_kernel<BKO, NORMALIZE, RELU>;
   constexpr int bytes = DwSmem<BKO>::BYTES;
   static bool smem_set[kMaxDevices] = {};
   const int err = allow_dynamic_smem(kernel, bytes, smem_set);
   if (err != 0) return err;
-  kernel<<<p.dw_grid, kThreads, bytes, p.stream>>>(
-      static_cast<const bf16*>(p.gy), static_cast<const bf16*>(p.y),
-      static_cast<const bf16*>(p.x), p.gs, p.gss, p.a, p.b, p.dwt_part, p.M,
-      p.K, p.N, p.splits, p.rows_per_split);
+  kernel<<<p.dw_grid, kBlockThreads, bytes, p.stream>>>(
+      m.gy, m.y, m.x, p.gs, p.gss, p.a, p.b, p.dwt_part, p.M, p.K, p.N,
+      p.splits, p.rows_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool NORMALIZE, bool RELU>
 int launch_bf16(const BwdArgs& p) {
-  int err = p.dx_tile == 128 ? launch_dx_bf16<128, NORMALIZE, RELU>(p)
-                             : launch_dx_bf16<64, NORMALIZE, RELU>(p);
+  Maps m;
+  int err;
+  if ((err = encode_box_map(&m.gy, p.gy, p.M, p.N)) != 0) return err;
+  if ((err = encode_box_map(&m.y, p.y, p.M, p.N)) != 0) return err;
+  if ((err = encode_box_map(&m.wt, p.wt, p.N, p.K)) != 0) return err;
+  if ((err = encode_box_map(&m.x, p.x, p.M, p.K)) != 0) return err;
+  if ((err = encode_box_map(&m.dx, p.dx, p.M, p.K)) != 0) return err;
+  if constexpr (NORMALIZE) {  // x's tile takes the room of a wider one
+    if (p.dx_tile == 256) return kBadArgument;
+    err = p.dx_tile == 128 ? launch_dx_bf16<128, true, RELU>(p, m)
+                           : launch_dx_bf16<64, true, RELU>(p, m);
+  } else {
+    err = p.dx_tile == 256   ? launch_dx_bf16<256, false, false>(p, m)
+          : p.dx_tile == 128 ? launch_dx_bf16<128, false, false>(p, m)
+                             : launch_dx_bf16<64, false, false>(p, m);
+  }
   if (err != 0) return err;
-  return p.dw_tile == 128 ? launch_dw_bf16<128, NORMALIZE, RELU>(p)
-                          : launch_dw_bf16<64, NORMALIZE, RELU>(p);
+  return p.dw_tile == 256   ? launch_dw_bf16<256, NORMALIZE, RELU>(p, m)
+         : p.dw_tile == 128 ? launch_dw_bf16<128, NORMALIZE, RELU>(p, m)
+                            : launch_dw_bf16<64, NORMALIZE, RELU>(p, m);
 }
 
 template <bool NORMALIZE, bool RELU>
@@ -830,7 +884,7 @@ struct F32 {
   static int run(const BwdArgs& p) { return launch_f32<NORMALIZE, RELU>(p); }
 };
 
-bool is_tile(int t) { return t == 64 || t == 128; }
+bool is_tile(int t) { return t == 64 || t == 128 || t == 256; }
 
 }  // namespace
 
@@ -838,11 +892,12 @@ bool is_tile(int t) { return t == 64 || t == 128; }
 // float32, read only with normalize. pdgamma, pdbeta: (K, ceil(M/128))
 // float32, written only with normalize. dwt_part: (splits, N, K) float32 with
 // splits * rows_per_split >= M > (splits - 1) * rows_per_split and
-// rows_per_split a multiple of 64. bf16 only: dx_tile and dw_tile (64 or
-// 128) are the K-width of the dx and dW^T tiles, dx_grid and dw_grid the
-// number of persistent blocks of each kernel. Starts both kernels on
-// `stream`; returns the first non-zero CUDA error, 0 if both launched, -1
-// for an argument it does not take.
+// rows_per_split a multiple of 64. bf16 only: dx_tile and dw_tile (64, 128
+// or 256) are the K-width of the dx and dW^T tiles, dx_grid and dw_grid the
+// number of persistent blocks of each kernel; gy, y, x, wt and dx 16-byte
+// aligned. Starts both kernels on `stream`; returns the first non-zero CUDA
+// error, 0 if both launched, or a negative code of wgmma_pipeline.cuh
+// (kBadArgument for an argument it does not take).
 extern "C" int matmul_stats_bwd_launch(
     const void* gy, const void* y, const void* x, const void* wt,
     const void* gs, const void* gss, const void* a, const void* b,
@@ -850,10 +905,10 @@ extern "C" int matmul_stats_bwd_launch(
     void* dwt_part, int M, int K, int N, int splits, int rows_per_split,
     int dtype, int normalize, int relu, int dx_tile, int dx_grid, int dw_tile,
     int dw_grid, void* stream) {
-  if (splits < 1 || rows_per_split % kRedStep != 0 ||
-      (long long)splits * rows_per_split < M ||
+  if (M < 1 || K < 1 || N < 1 || K % 8 || N % 8 || splits < 1 ||
+      rows_per_split % kBK != 0 || (long long)splits * rows_per_split < M ||
       (long long)(splits - 1) * rows_per_split >= M)
-    return -1;
+    return kBadArgument;
   const BwdArgs p{gy,
                   y,
                   x,
@@ -880,9 +935,9 @@ extern "C" int matmul_stats_bwd_launch(
                   static_cast<cudaStream_t>(stream)};
   if (dtype == 0) {
     if (!is_tile(dx_tile) || !is_tile(dw_tile) || dx_grid < 1 || dw_grid < 1)
-      return -1;
+      return kBadArgument;
     return by_mode<Bf16>(p, normalize, relu);
   }
   if (dtype == 1) return by_mode<F32>(p, normalize, relu);
-  return -1;
+  return kBadArgument;
 }

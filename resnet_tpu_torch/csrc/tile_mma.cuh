@@ -6,8 +6,8 @@
 // The float32 kernels (run only in the parity checks) multiply through plain
 // FMAs on the CUDA cores, so that float32 stays full precision (no TF32),
 // and write their accumulators to a float32 staging tile in shared memory,
-// from where their epilogues read them. The bf16 kernels take the pipelined
-// tensor-core path of mma_pipeline.cuh instead.
+// from where their epilogues read them. The bf16 kernels take the Hopper
+// tensor-core mainloop of wgmma_pipeline.cuh instead.
 
 #pragma once
 

@@ -27,11 +27,23 @@ from resnet_tpu_torch.utils.op_count import report_kernel
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 BLOCK_ROWS = 128       # rows of y or dx, and of one partial sum, a block
-TILE_WIDTHS = (128, 64)   # output tile widths of the bf16 kernels
+TILE_WIDTHS = (256, 128, 64)   # output tile widths of the bf16 kernels
 DW_TILE_ROWS = 128     # rows (along N) of a bf16 dW^T tile
 DW_ROW_STEP = 64       # rows a dW stage holds: a split's row multiple
 H100_SMS = 132
 MAX_GRID_Y = 65535     # the float32 kernels' grid: one block row per 128 rows
+TMA_ALIGN = 16         # bytes: TMA's base address and row pitch multiple
+# the bf16 kernels' shared memory, as csrc/matmul_stats*.cu lay it out
+SMEM_LIMIT = 232448    # bytes a block may use on an H100
+# ring stages of each kernel, by tile width
+STAGES = {"forward": {64: 5, 128: 5, 256: 3}, "dx": {64: 3, 128: 3, 256: 3},
+          "dw": {64: 4, 128: 4, 256: 3}}
+CONSUMER_WARPS = 8     # two consumer warpgroups
+BOX_BYTES = 64 * 64 * 2   # one 64 x 64 bf16 TMA box
+ATOM_BYTES = 1024      # the swizzle atom: the ring's alignment
+_LAUNCH_ERRORS = {-1: "an argument the kernel does not take",
+                  -2: "the driver has no cuTensorMapEncodeTiled",
+                  -3: "the driver refused a tensor map"}
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -102,6 +114,25 @@ def backward_plain(gy, gs, gss, y, x, w, consts=None, relu: bool = False):
 # the kernels
 # ---------------------------------------------------------------------------
 
+def tma_misalignment(data_ptr: int, strides, itemsize: int
+                     ) -> Optional[str]:
+    """Why TMA cannot read a matrix at ``data_ptr`` with element
+    ``strides`` (outermost first) of ``itemsize`` bytes, or None if it
+    can: the base address and every stride but the innermost, in bytes,
+    must be multiples of 16, and the innermost stride 1. The kernels load
+    every bf16 operand through TMA tensor maps; the wrapper refuses what
+    the maps would refuse rather than copy it."""
+    if data_ptr % TMA_ALIGN:
+        return f"must start on a {TMA_ALIGN}-byte boundary (at {data_ptr})"
+    if strides and strides[-1] != 1:
+        return f"must have unit column stride, got strides {tuple(strides)}"
+    for st in strides[:-1]:
+        if st * itemsize % TMA_ALIGN:
+            return (f"must have row strides of a multiple of {TMA_ALIGN} "
+                    f"bytes, got {st * itemsize}")
+    return None
+
+
 def _check_matrix(name, t, shape, dtype, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
@@ -110,8 +141,9 @@ def _check_matrix(name, t, shape, dtype, device):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    why = tma_misalignment(t.data_ptr(), t.stride(), t.element_size())
+    if why is not None:
+        raise ValueError(f"{name} {why}")
 
 
 def _check_problem(x, w):
@@ -141,8 +173,9 @@ def _weight_rows(w: torch.Tensor) -> torch.Tensor:
     of a 1x1 conv's OIHW weight. A view when ``w`` is the transpose of such
     a weight; otherwise one small copy."""
     wt = w.t()
-    if not wt.is_contiguous() or wt.data_ptr() % 16:
-        wt = wt.contiguous()
+    if not wt.is_contiguous() or tma_misalignment(
+            wt.data_ptr(), wt.stride(), wt.element_size()) is not None:
+        wt = wt.clone(memory_format=torch.contiguous_format)
     return wt
 
 
@@ -179,7 +212,8 @@ def report_launch(counter, cost: Tuple[int, int]) -> None:
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        why = _LAUNCH_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: {why}")
 
 
 def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
@@ -200,7 +234,7 @@ def forward(x, w, a=None, b=None, relu: bool = False, *, counter):
     from resnet_tpu_torch._build import load_library
     lib = load_library("matmul_stats")
     grid_m = -(-m // BLOCK_ROWS)
-    width, grid = tile_plan(m, n, _sm_count(x.device))
+    width, grid = forward_plan(m, k, n, _sm_count(x.device))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     # (sum, sumsq) partials, each (N, ceil(M/128)): one row per column, so
     # that one reduction along contiguous rows adds them in a fixed order
@@ -226,22 +260,72 @@ def _wave_fill(items: int, sms: int) -> float:
     return items / (-(-items // sms) * sms)
 
 
-def tile_width(cols: int) -> int:
-    """Output tile width of the bf16 kernels: 64 where the output is at
-    most 64 wide, else 128. On the H100, 128-wide tiles were faster than
-    64-wide ones even where they leave most of a last wave idle: the
-    forward of 6272x2048x512 0.067 against 0.075 ms, the dx of
-    6272x512x2048 0.123 against 0.140 ms (kernel times, chip_smoke.py
-    mm_timing)."""
-    return 64 if cols <= 64 else 128
+def tile_widths(k: int, n: int, normalize: bool = False
+                ) -> Tuple[int, int, int]:
+    """Output tile widths (forward along N, dx along K, dW^T along K) of
+    the bf16 kernels for a (M, K) @ (K, N) product: 64 where the output is
+    at most 64 wide; 256, whose 64-deep stages carry 1.5 times the
+    operations of a 128-wide tile's for each byte read from L2, where it
+    measured faster on one H100 (every ResNet-50 shape at both widths):
+    the forward where N >= 256 and K <= 512 (at K
+    >= 1024 its 3-stage ring lost to the 5-stage ring of 128-wide tiles,
+    e.g. 25088x1024x256 0.060 against 0.044 ms), dx where K >= 512 without
+    the prologue (with it, x's tile for the epilogue takes the room of the
+    wider ring), dW where K >= 256; else 128."""
+    forward = 64 if n <= 64 else 256 if n >= 256 and k <= 512 else 128
+    dx = 64 if k <= 64 else 256 if k >= 512 and not normalize else 128
+    dw = 64 if k <= 64 else 256 if k >= 256 else 128
+    return forward, dx, dw
+
+
+def smem_bytes(kernel: str, width: int, normalize: bool = False) -> int:
+    """Dynamic shared memory of one block of a bf16 kernel ("forward",
+    "dx" or "dw") with output tiles ``width`` wide, as the kernel lays it
+    out: the 1024-byte alignment slack, the ring of stages of 64 x 64
+    boxes, then (forward, dx) the staging of one TMA store pass of 128
+    rows (forward: up to 128 columns; dx: the tile, a quarter of the
+    256-wide one) and each consumer warp's column partials, then (dx with
+    the prologue) the tile's x and its columns' four BatchNorm constants,
+    then the stages' barriers."""
+    operand = 64 * width * 2                  # a 64-deep operand of the tile
+    boxes = {"forward": 2, "dx": 4, "dw": 4}  # x; gy, y (128 rows or cols)
+    if kernel not in boxes:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    stages = STAGES[kernel][width]
+    # full and empty a stage; the forward's prologue adds `ready`
+    epilogue, barriers = 0, (3 if kernel == "forward" else 2) * stages * 8
+    if kernel != "dw":
+        store = min(width, 128) if kernel == "forward" else \
+            (64 if width == 256 else width)
+        epilogue = BLOCK_ROWS * store * 2 + 2 * CONSUMER_WARPS * width * 4
+    if kernel == "dx" and normalize:   # x's tile; a, b, inv, minv
+        epilogue += BLOCK_ROWS * width * 2 + 4 * width * 4
+        barriers += 16
+    return (ATOM_BYTES + stages * (boxes[kernel] * BOX_BYTES + operand)
+            + epilogue + barriers)
+
+
+def _grid(rows: int, cols: int, width: int, sms: int) -> int:
+    """Persistent blocks over the 128-row tiles ``width`` wide of a
+    (rows, cols) output: one an SM, no more than the tiles."""
+    return min(-(-rows // BLOCK_ROWS) * -(-cols // width), sms)
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(rows: int, cols: int, sms: int = H100_SMS) -> Tuple[int, int]:
-    """(tile width, persistent blocks) of the bf16 forward or dx kernel."""
-    width = tile_width(cols)
-    tiles = -(-rows // BLOCK_ROWS) * -(-cols // width)
-    return width, min(tiles, sms)
+def forward_plan(m: int, k: int, n: int, sms: int = H100_SMS
+                 ) -> Tuple[int, int]:
+    """(tile width, persistent blocks) of the bf16 forward kernel."""
+    width = tile_widths(k, n)[0]
+    return width, _grid(m, n, width, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def dx_plan(m: int, k: int, n: int, sms: int = H100_SMS,
+            normalize: bool = False) -> Tuple[int, int]:
+    """(tile width, persistent blocks) of the bf16 dx kernel, with or
+    without the BatchNorm epilogue."""
+    width = tile_widths(k, n, normalize)[1]
+    return width, _grid(m, k, width, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,7 +338,7 @@ def dw_plan(m: int, k: int, n: int, sms: int = H100_SMS
     the card's waves best (ties to fewer), so that the float32 partials
     stay near one wave of tiles whatever M is; one split writes dW with no
     partials."""
-    width = tile_width(k)
+    width = tile_widths(k, n)[2]
     tiles = -(-n // DW_TILE_ROWS) * -(-k // width)
     best = None
     for s in range(1, max(1, round(sms / tiles)) + 1):
@@ -294,7 +378,7 @@ def backward(gy, gs, gss, y, x, w, consts=None, relu: bool = False, *,
                            zip(("a", "b", "inv", "minv"), consts))
     grid_m = -(-m // BLOCK_ROWS)
     sms = _sm_count(x.device)
-    dx_width, dx_grid = tile_plan(m, k, sms)
+    dx_width, dx_grid = dx_plan(m, k, n, sms, normalize)
     dw_width, splits, rows, dw_grid = dw_plan(m, k, n, sms)
     dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
     dwt_part = torch.empty((splits, n, k), dtype=torch.float32,

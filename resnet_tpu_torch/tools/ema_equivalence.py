@@ -20,6 +20,14 @@ One JSON line a run, then a summary row. The gates of the JAX package's
 CI rung (``tests/test_real_digits.py``): each mode at least 0.8, the two
 within 0.06 of each other, the gap of bn-ema at most 0.05.
 
+The runs compute as that rung does, in float32 and deterministically
+(``reproducible_arithmetic``): a gate on one seed's run means something
+only where a second run of that seed gives the same numbers. With
+PyTorch's defaults on the card (TF32 convolutions; cuDNN's default
+algorithms, some of which sum in a varying order) it does not: two runs
+of seed 0 differ, and the gap between the modes moves by several points
+from run to run, across the 0.06 gate.
+
     python -m resnet_tpu_torch.tools.ema_equivalence [--seeds 0 1 2] \\
         [--epochs 14] [--data DIR]
     python -m resnet_tpu_torch.tools.ema_equivalence --device cpu
@@ -43,12 +51,13 @@ import json
 import os
 import sys
 import tempfile
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from resnet_tpu_torch.config import Config
+from resnet_tpu_torch.utils.xla_opts import apply_backend_options
 
 
 DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -133,6 +142,29 @@ def make_cfg(root: str, seed: int, bn_ema: bool, epochs: int) -> Config:
     cfg.train.seed = seed
     cfg.train.bn_ema = bn_ema
     return cfg
+
+
+# float32 (no TF32) and cuDNN's deterministic algorithms, not autotuned
+REPRODUCIBLE_OPTS = {"tf32": "0", "cudnn_deterministic": "1",
+                     "cudnn_benchmark": "0"}
+
+
+@contextlib.contextmanager
+def reproducible_arithmetic() -> Iterator[None]:
+    """Float32 and deterministic algorithms for the body
+    (``REPRODUCIBLE_OPTS``, ``torch.use_deterministic_algorithms`` with a
+    warning for an op that has no deterministic form, and cuBLAS's fixed
+    workspace); every backend switch is put back after it."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    restore = apply_backend_options(REPRODUCIBLE_OPTS)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        restore()
 
 
 @torch.no_grad()
@@ -225,8 +257,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)   # no card: raise before the data
     root = args.data or build_digits(tempfile.mkdtemp(prefix="ema_eq_"))
-    rows = [run_one(root, seed, bn_ema, args.epochs, device)
-            for seed in args.seeds for bn_ema in (False, True)]
+    with reproducible_arithmetic():
+        rows = [run_one(root, seed, bn_ema, args.epochs, device)
+                for seed in args.seeds for bn_ema in (False, True)]
     print(json.dumps({"summary": summarize(rows)}))
     return 0
 

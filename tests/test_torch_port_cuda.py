@@ -359,6 +359,13 @@ _RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MM_SHAPES = [(96, 32, 64), (333, 72, 40), (4100, 64, 128),
              (4100, 1024, 256), (4100, 200, 136), (40, 136, 200),
              (70000, 64, 64)]
+# every distinct 1x1 conv of a ResNet-50 train step at batch 128
+# (tests/test_torch_port_tile_plan.py holds it against the model)
+R50_SHAPES = [(6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
+              (25088, 256, 1024), (25088, 512, 1024), (25088, 1024, 256),
+              (25088, 1024, 512), (100352, 128, 512), (100352, 256, 512),
+              (100352, 512, 128), (100352, 512, 256), (401408, 64, 64),
+              (401408, 64, 256), (401408, 256, 64), (401408, 256, 128)]
 
 
 def _mm_inputs(device, m, k, n, dtype, seed=0):
@@ -392,7 +399,7 @@ def _consts(bn, eps=2e-5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", MM_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", MM_SHAPES + R50_SHAPES, ids=str)
 @pytest.mark.parametrize("mode", ["plain", "norm", "norm-relu"])
 def test_forward_kernel_matches_plain_version(cuda, mode, shape, dtype):
     from resnet_tpu_torch.ops import fused_chain as fc
@@ -425,7 +432,7 @@ def test_forward_kernel_matches_plain_version(cuda, mode, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", MM_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", MM_SHAPES + R50_SHAPES, ids=str)
 @pytest.mark.parametrize("mode", ["plain", "norm", "norm-relu"])
 def test_backward_kernel_matches_plain_version(cuda, mode, shape, dtype):
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -476,6 +483,24 @@ def test_backward_kernel_is_deterministic(cuda, mode):
         assert (got is None and again is None) or torch.equal(got, again)
 
 
+@pytest.mark.parametrize("mode", ["plain", "norm-relu"])
+def test_forward_kernel_is_deterministic(cuda, mode):
+    """Two launches on one input give the same bits: y, and the column
+    sums of partials summed in a fixed order, with blocks that walk
+    several tiles each."""
+    from resnet_tpu_torch.ops import fused_unit as fu
+    m, k, n = 70000, 200, 136
+    x, w, bn, _ = _mm_inputs(cuda, m, k, n, torch.bfloat16, seed=4)
+    with torch.no_grad():
+        call = (lambda: fu.matmul_stats(x, w)) if mode == "plain" else \
+            (lambda: fu.norm_relu_matmul_stats(x, w, *bn.values(), 2e-5,
+                                               True))
+        first, second = call(), call()
+    torch.cuda.synchronize()
+    for got, again in zip(first, second):
+        assert torch.equal(got, again)
+
+
 def test_matmul_wrappers_reject_bad_input(cuda):
     from resnet_tpu_torch.ops import fused_convbn as cb
     from resnet_tpu_torch.ops import fused_unit as fu
@@ -500,6 +525,18 @@ def test_matmul_wrappers_reject_bad_input(cuda):
                           w)
     with pytest.raises(ValueError, match="gs must be"):
         fu.fused_backward(cots["gy"], cots["gs"][:8], cots["gss"], y, x, w)
+    # the tensor maps' alignment: refused, not copied
+    def shifted(t):   # t's values, one bf16 (2 bytes) past an aligned start
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        return buf[1:1 + t.numel()].view(t.shape).copy_(t)
+
+    x_off = shifted(x)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="x must start on a 16-byte"):
+        cb.matmul_with_stats(x_off, w)
+    with pytest.raises(ValueError, match="gy must start on a 16-byte"):
+        fu.fused_backward(shifted(cots["gy"]), cots["gs"], cots["gss"], y,
+                          x, w)
 
 
 @pytest.mark.parametrize("relu", [True, False], ids=["relu", "norelu"])

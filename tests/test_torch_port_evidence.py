@@ -346,6 +346,45 @@ def test_trainmode_sums_restores_the_batchnorm_buffers():
                zip(state.model.buffers(), saved))
 
 
+def test_ema_equivalence_runs_every_row_deterministically_in_float32(
+        tmp_path, monkeypatch, capsys):
+    """Every run of ``main`` sees float32, cuDNN's deterministic algorithms
+    without autotuning and ``torch.use_deterministic_algorithms``; the
+    switches are the caller's again afterwards."""
+    from resnet_tpu_torch.utils.device import set_tf32
+
+    def switches():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    seen = []
+
+    def fake_run(root, seed, bn_ema, epochs, device):
+        seen.append(switches())
+        return dict(mode="bn_ema" if bn_ema else "full_batch_bn",
+                    val_accuracy=0.9, val_ce=0.3, eval_consistency_gap=0.0)
+
+    monkeypatch.setattr(ema_equivalence, "run_one", fake_run)
+    before = switches()
+    torch.backends.cudnn.benchmark = True
+    set_tf32(True)
+    try:
+        caller = switches()
+        assert ema_equivalence.main(["--seeds", "0", "1", "--data",
+                                     str(tmp_path), "--device", "cpu"]) == 0
+        assert seen == [(True, True, False, False, False)] * 4
+        assert switches() == caller
+    finally:
+        torch.backends.cudnn.benchmark = before[2]
+        torch.backends.cudnn.allow_tf32 = before[3]
+        torch.backends.cuda.matmul.allow_tf32 = before[4]
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["summary"]["acc_mean_diff(ema - full)"] == 0.0
+
+
 @pytest.mark.parametrize("tool", [bench_input, nightly_convergence,
                                   ema_probe, ema_equivalence],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
