@@ -1,0 +1,12 @@
+"""Device milliseconds a batch of cuDNN's and cuBLAS's
+kernels (convolutions and matrix products), in the traced window of a
+serve cell (``trace.kernel_class``)."""
+
+
+def read(ctx):
+    if ctx.kind != "serve":
+        return None
+    seconds = ctx.window.seconds_by("class").get("library")
+    if not seconds:
+        return None
+    return 1e3 * seconds / ctx.batches

@@ -1,0 +1,11 @@
+"""The whole step's share of the card's bf16 peak: the model's FLOPs an
+image (forward and backward, ``counts/<config>.json``) times the images of the
+traced window, over the window's seconds, against ``peaks.json``."""
+
+
+def read(ctx):
+    if ctx.kind != "train" or not ctx.images:
+        return None
+    flops = ctx.counts["train_flops_per_image"] * ctx.images
+    return 100.0 * flops / ctx.window.window_s \
+        / ctx.peaks["bf16_flops_per_s"]
