@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from resnet_tpu_torch.ops.pool import stem_max_pool
 from resnet_tpu_torch.parallel.dist import all_reduce_sum
+from resnet_tpu_torch.utils.profiler import region
 
 # Depth -> per-stage unit counts (ref:symbol/resnet.py depth table)
 IMAGENET_UNITS = {
@@ -119,13 +120,17 @@ class GroupedConvDense(Conv):
                              "groups")
 
     def dense_weight(self) -> torch.Tensor:
-        """The (O, merge·I/G, kh, kw) weight of the merged convolution."""
+        """The (O, merge·I/G, kh, kw) weight of the merged convolution,
+        built inside the ``grouped_weight`` span."""
+        return region("grouped_weight", self._dense, self.weight)
+
+    def _dense(self, weight: torch.Tensor) -> torch.Tensor:
         f = self.merge
-        cout, cg, kh, kw = self.weight.shape
+        cout, cg, kh, kw = weight.shape
         go, cog = self.groups // f, cout // self.groups
         # k6[j, m, o, c, h, w]: output o of inner group m of outer group j
         # (output channels run over (j, m, o), as the original groups do)
-        k6 = self.weight.float().reshape(go, f, cog, cg, kh, kw)
+        k6 = weight.float().reshape(go, f, cog, cg, kh, kw)
         eye = torch.eye(f, dtype=torch.float32, device=k6.device)
         dense = torch.einsum("jmochw,nm->jmonchw", k6, eye)
         # the inputs of outer group j run over (n, c): original group
@@ -227,6 +232,9 @@ class BatchNorm(nn.Module):
     Under remat (:func:`remat_unit`) a unit's forward runs twice; the
     second run, the recomputation, refreshes nothing and reads the running
     statistics the first run read (``remat_pass``).
+
+    While a profiler records, the forward runs inside the ``bn`` span and
+    its backward inside ``bn.backward`` (``utils/profiler.py::region``).
 
     ``group`` (a ``torch.distributed`` process group whose ranks each hold
     a contiguous block of one global batch, rank order = batch order):
@@ -359,6 +367,9 @@ class BatchNorm(nn.Module):
         return out.to(self.dtype)
 
     def forward(self, x):
+        return region("bn", self._forward, x)
+
+    def _forward(self, x):
         dims = (0, 2, 3)
         xf = x.float()
         sync = self.group is not None

@@ -5,7 +5,9 @@ The host loop pulls prefetched batches (K stacked per call), fires the
 K-step train call, and reads the metric sums off the device only every
 ``frequent`` batches for the Speedometer; in between it runs ahead of the
 card, which works through the queued kernels. An epoch tail shorter than
-K goes through a one-step call built at first need.
+K goes through a one-step call built at first need. While a profiler
+records, each wait for the next prefetched batch is the
+``train.input_wait`` span (``utils/profiler.py``).
 
 bn-ema (``bn_ema=True``) trains its first ``bn_ema_warmup`` steps
 (negative: that many epochs) under full-batch BatchNorm, then switches
@@ -58,7 +60,7 @@ from resnet_tpu_torch.train.steps import eval_step, make_train_step
 from resnet_tpu_torch.utils.export import load_mxnet_checkpoint
 from resnet_tpu_torch.utils.logging import setup_logging
 from resnet_tpu_torch.utils.metric_writer import MetricWriter
-from resnet_tpu_torch.utils.profiler import maybe_trace
+from resnet_tpu_torch.utils.profiler import maybe_trace, spanned
 from resnet_tpu_torch.utils.symbol_export import save_symbol
 
 _SUM_KEYS = ("top1_sum", "top5_sum", "loss_sum", "count")
@@ -267,7 +269,7 @@ class Solver:
             source = prefetch_grouped(train_iter.epoch_iter(epoch),
                                       self._spd, size=size,
                                       device=self.device)
-        for batch, n in source:
+        for batch, n in spanned("train.input_wait", source):
             if self._bn_ema_pending and self._host_step >= self._bn_ema_switch:
                 self._set_bn_mode(state.model, warmup=False)
                 self._bn_ema_pending = False

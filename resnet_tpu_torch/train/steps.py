@@ -5,7 +5,10 @@ eagerly: augmentation (the fused kernel), forward, autograd backward, the
 in-place optimizer update and the metric sums, all left on the device.
 ``make_train_step(steps_per_dispatch=k)`` runs exactly k such steps in
 sequence per call over batches stacked on a leading k axis and adds up
-their metric sums, as the JAX K-step scan does.
+their metric sums, as the JAX K-step scan does. While a profiler records,
+a call runs inside the ``train.call`` span and each step's five phases
+inside ``train.augment``, ``train.forward``, ``train.backward``,
+``train.optimizer`` and ``train.metrics`` (``utils/profiler.py``).
 
 Data parallelism: one process per device, ``group`` the
 ``torch.distributed`` process group of the replicas, each holding a
@@ -43,6 +46,7 @@ import torch.distributed as dist
 
 from resnet_tpu_torch.ops.metrics import cross_entropy_loss, metric_sums
 from resnet_tpu_torch.train.state import TrainState
+from resnet_tpu_torch.utils.profiler import span
 
 DP_MODES = ("shard_map", "jit")
 
@@ -115,21 +119,25 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     makes them at the end of the call)."""
     images, labels = batch["image"], batch["label"]
     if augment_fn is not None:
-        replica, rank = None, None
-        if group is not None:
-            if dp_mode == "jit":
-                replica = (dist.get_rank(group), dist.get_world_size(group))
-            else:
-                rank = dist.get_rank(group)
-        gen = step_generator(state.seed, state.step, images.device, rank)
-        kw = {} if replica is None else {"replica": replica}
-        images = augment_fn(images, gen, batch.get("dims"), batch.get("rows"),
-                            **kw)
+        with span("train.augment"):
+            replica, rank = None, None
+            if group is not None:
+                if dp_mode == "jit":
+                    replica = (dist.get_rank(group),
+                               dist.get_world_size(group))
+                else:
+                    rank = dist.get_rank(group)
+            gen = step_generator(state.seed, state.step, images.device, rank)
+            kw = {} if replica is None else {"replica": replica}
+            images = augment_fn(images, gen, batch.get("dims"),
+                                batch.get("rows"), **kw)
     model = state.model
     model.train()
-    logits = model(images)
-    loss = cross_entropy_loss(logits, labels, label_smooth)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    with span("train.forward"):
+        logits = model(images)
+        loss = cross_entropy_loss(logits, labels, label_smooth)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(model.parameters()))
     sync = group is not None and grad_sync
     if sync:
         all_reduce_(grads, group, comm_dtype=comm_dtype)
@@ -138,8 +146,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             # keep the replicas' copies equal
             with torch.no_grad():
                 all_reduce_(_float_buffers(model), group)
-    state.apply_gradients(grads)
-    with torch.no_grad():
+    with span("train.optimizer"):
+        state.apply_gradients(grads)
+    with torch.no_grad(), span("train.metrics"):
         metrics = metric_sums(logits, labels, loss)
         if sync:
             metrics = sum_metrics(metrics, group)
@@ -209,6 +218,10 @@ def make_train_step(label_smooth: float = 0.0,
             total = sum_metrics(total, group)
         return state, total
 
-    if k == 1 and not dispatch_sync:
-        return step
-    return multi
+    run = step if k == 1 and not dispatch_sync else multi
+
+    def call(state, batches):
+        with span("train.call"):
+            return run(state, batches)
+
+    return call

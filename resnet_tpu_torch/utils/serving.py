@@ -30,9 +30,11 @@ version).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import sys
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -166,6 +168,15 @@ def export_serving(cfg, model: torch.nn.Module, out_prefix: str,
     return artifact, manifest_path
 
 
+def _call_span():
+    """The port's ``serve.call`` span (``utils/profiler.py``) where the port
+    is loaded; nothing where torch alone is, as this module asks for no
+    more."""
+    profiler = sys.modules.get("resnet_tpu_torch.utils.profiler")
+    return (profiler.span("serve.call") if profiler is not None
+            else contextlib.nullcontext())
+
+
 def load_serving(out_prefix: str, device=None
                  ) -> Tuple[Callable, Dict[str, Any]]:
     """Load an exported artifact; returns (callable, manifest).
@@ -178,7 +189,9 @@ def load_serving(out_prefix: str, device=None
     An N-device artifact takes batches that divide by N: on the card it
     places a copy of the program on each of ``cuda:0..N-1`` and runs
     block ``i`` of the batch on card ``i``; on the CPU the N blocks run in
-    turn. The logits are concatenated on the first device."""
+    turn. The logits are concatenated on the first device. A call runs
+    inside the ``serve.call`` span where the port is loaded, outside the
+    exported program."""
     from torch.export.passes import move_to_device_pass
 
     device = torch.device("cuda" if device is None else device)
@@ -209,14 +222,15 @@ def load_serving(out_prefix: str, device=None
 
     @torch.inference_mode()
     def serve(images_u8):
-        x = torch.as_tensor(images_u8)
-        if x.shape[0] % n:
-            raise ValueError(f"batch_size {x.shape[0]} must divide by "
-                             f"num_devices {n}")
-        outs = [programs[i % len(programs)](
-            block.to(devices[i % len(devices)], non_blocking=True))
-            for i, block in enumerate(x.chunk(n))]
-        return outs[0] if n == 1 else torch.cat([o.to(devices[0])
-                                                 for o in outs])
+        with _call_span():
+            x = torch.as_tensor(images_u8)
+            if x.shape[0] % n:
+                raise ValueError(f"batch_size {x.shape[0]} must divide by "
+                                 f"num_devices {n}")
+            outs = [programs[i % len(programs)](
+                block.to(devices[i % len(devices)], non_blocking=True))
+                for i, block in enumerate(x.chunk(n))]
+            return outs[0] if n == 1 else torch.cat([o.to(devices[0])
+                                                     for o in outs])
 
     return serve, manifest

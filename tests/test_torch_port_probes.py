@@ -223,12 +223,6 @@ def test_input_overhead_matches_jax(with_pipe, device_data):
         jax_input_overhead(with_pipe, device_data)
 
 
-def test_time_fn_counts_calls_and_time():
-    calls = []
-    seconds = profiler.time_fn(calls.append, 1, iters=4, warmup=2)
-    assert len(calls) == 6 and seconds >= 0.0
-
-
 def test_trace_probe_program_runs_small_on_the_cpu(tmp_path, capsys):
     """The probe's program (bf16, bn_subsample=8, standard stem, the
     augmenter in the standard layout) at depth 18 on 48x48 images: two
