@@ -14,7 +14,12 @@ It checks one float32 step of each path, and of the subsampled and grouped
 BatchNorm modes, against the port's CPU path on a small input, and runs
 one eval step. Then the two probes: ``reduce_probe`` (the BatchNorm
 backward's sum pair, K5, at ResNet-50's bs256 shapes) and ``trace_probe``
-(device time by kernel of the bs256 ``bn_subsample=8`` train step), and
+(device time by kernel of the bs256 ``bn_subsample=8`` train step);
+``bn_ema`` holds the bn-ema BatchNorm's kernels against their plain
+versions at every BatchNorm shape of a bs256 ResNet-50 and ResNeXt-50 step
+and times them, the plain versions and aten's ``native_batch_norm`` pair
+at ResNet-50's (``main_path`` and ``resnext_path`` count their 53
+launches a step each); and
 the fused 1x1-conv kernels' timings at every ResNet-50 shape, with each
 kernel apart from the wrapper's partial sums from a profiled window a
 shape. Last, in a child process, the training entry point: ``fit_path``
@@ -98,8 +103,8 @@ reads the two-device artifact ``serve`` exported.
 
 ``--only PHASE[,PHASE...]`` runs a subset after the build (for work on one
 kernel); with no arguments every phase runs. The phases: k1, k1_split,
-mm_check, k3_path, k5_check, reduce_probe, reference, chain_reference,
-fused_reference, subsample_reference, grouped_reference,
+mm_check, k3_path, k5_check, reduce_probe, bn_ema, reference,
+chain_reference, fused_reference, subsample_reference, grouped_reference,
 resnext_reference, v2_reference, cifar_reference, mask_pool_reference,
 remat_reference, rotate_check, main, chain, fused, fullbatch, resnext,
 resnext_grouped, cifar, remat, k1_split_mode (after main, for its img/s),
@@ -1070,6 +1075,153 @@ def reduce_probe_phase():
     return dict(total, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the bn-ema BatchNorm's kernels (ops/bn_ema.py over csrc/bn_sums.cu)
+# ---------------------------------------------------------------------------
+
+BN_EMA_ITERS = 10
+
+
+def bn_ema_inputs(m, c, dtype, seed):
+    """x, gy (M, C) on the card and a BatchNorm's float32 state near the
+    batch's statistics: weight, bias, running mean and variance."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = (0.3 + 1.5 * randn(m, c)).to(dtype)
+    gy = randn(m, c).to(dtype)
+    return x, gy, dict(weight=1 + 0.2 * randn(c), bias=0.2 * randn(c),
+                       running_mean=0.3 + 0.3 * randn(c),
+                       running_var=2.25 * (1 + 0.5 * randn(c).abs()))
+
+
+def check_bn_ema():
+    """The bn-ema kernels against their plain versions at every BatchNorm
+    shape of a ResNet-50 and ResNeXt-50 train step at batch 256 in bf16
+    (clip on, c = 2), and at 4096x128 in float32: the forward's vectors
+    within 1e-5 of the plain finalize over the plain sums, K5's sums within
+    2e-5 of their terms' magnitudes, y and dx from the same vectors within
+    an ulp of their dtype (``elementwise_bound``). Returns the worst |diff|
+    of y and dx."""
+    from resnet_tpu_torch.ops import bn_ema as be
+    from resnet_tpu_torch.tools.reduce_probe import STEP_SHAPES
+    shapes = sorted({s for v in STEP_SHAPES.values() for s in v})
+    worst = 0.0
+    for (m, c), dtype in [(s, torch.bfloat16) for s in shapes] \
+            + [((4096, 128), torch.float32)]:
+        x, gy, st = bn_ema_inputs(m, c, dtype, seed=7)
+        fin = (2e-5, 0.9, 2.0)
+        plain_stats = (st["running_mean"].clone(), st["running_var"].clone())
+        y, vectors = be.bn_ema_forward(x, st["weight"], st["bias"],
+                                       st["running_mean"], st["running_var"],
+                                       *fin)
+        want = be.finalize_plain(*be.stats_plain(x), m, *plain_stats,
+                                 st["weight"], *fin)
+        mean, inv, a = vectors
+        dx, s1, s2 = be.bn_ema_backward(gy, x, vectors)
+        xf, gf = x.float(), gy.float()
+        results = {name: compare(g, w, 1e-5 * w.abs() + 1e-6)
+                   for name, g, w in zip(("mean", "inv", "a"), vectors, want)}
+        results.update({
+            name: compare(g, w, 2e-5 * terms) for name, g, w, terms in zip(
+                ("s1", "s2"), (s1, s2), be.torch_sums(gy, x, mean, inv),
+                (gf.abs().sum(0), (gf * (xf - mean) * inv).abs().sum(0)))})
+        want_y = be.apply_plain(x, mean, a, st["bias"])
+        want_dx = be.dx_plain(gy, s1, a)
+        results["y"] = compare(y, want_y, elementwise_bound(want_y, dtype))
+        results["dx"] = compare(dx, want_dx, elementwise_bound(want_dx, dtype))
+        torch.cuda.synchronize()
+        worst = max(worst, results["y"][1], results["dx"][1])
+        report("bn_ema_check", results, dtype=str(dtype), shape=[m, c],
+               splits=be.sum_splits(m, c)[0])
+        del x, gy, xf, gf
+    return worst
+
+
+def library_batch_norm(x4, gy4, st):
+    """The forward and backward of ``torch.ops.aten.native_batch_norm`` in
+    training mode on NCHW channels-last tensors: the PyTorch call pair that
+    normalizes a batch, as the yardstick. It computes full-batch BatchNorm,
+    not bn-ema, and the port never calls it."""
+    aten = torch.ops.aten
+    rm, rv = st["running_mean"].clone(), st["running_var"].clone()
+
+    def forward():
+        return aten.native_batch_norm(x4, st["weight"], st["bias"], rm, rv,
+                                      True, 0.1, 2e-5)
+
+    _, save_mean, save_invstd = forward()
+
+    def backward():
+        return aten.native_batch_norm_backward(
+            gy4, x4, st["weight"], rm, rv, save_mean, save_invstd, True,
+            2e-5, [True, True, True])
+    return forward, backward
+
+
+def bn_ema_timing(model="resnet50"):
+    """The bn-ema kernels' forward launch (statistics, finalize, apply) and
+    backward launch (K5, reduce, dx), K5's own wrapper (K5, reduce), the
+    plain versions and aten's BatchNorm pair at every BatchNorm shape of
+    ``model``'s train step at batch 256 in bf16, on NCHW channels-last
+    tensors as the model gives them: medians of ``BN_EMA_ITERS``
+    CUDA-event runs, L2 flushed before each, summed over the step (each
+    shape times its BatchNorms). The bound: the bytes each launch must move
+    at 3.35 TB/s (forward: x twice and y; backward: gy twice, x and dx).
+    Returns the step sums."""
+    from resnet_tpu_torch.ops import bn_ema as be
+    from resnet_tpu_torch.tools.reduce_probe import STEP_SHAPES
+    from resnet_tpu_torch.utils.profiler import cuda_median_ms
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda").sum
+    total, shapes = {}, []
+    for (m, c), count in sorted(STEP_SHAPES[model].items()):
+        x, gy, st = bn_ema_inputs(m, c, torch.bfloat16, seed=8)
+        side = math.isqrt(m // 256)
+        x, gy = (t.view(256, side, side, c).permute(0, 3, 1, 2)
+                 for t in (x, gy))
+        el = m * c * x.element_size()
+        rm, rv = st["running_mean"].clone(), st["running_var"].clone()
+        hyper = (2e-5, 0.9, 1.0)         # eps, momentum, clamp
+        _, vectors = be.bn_ema_forward(x, st["weight"], st["bias"], rm, rv,
+                                       *hyper)
+        mean, inv, a = vectors
+        lib_fwd, lib_bwd = library_batch_norm(x, gy, st)
+        routes = {
+            "forward": (lambda: be.bn_ema_forward(
+                x, st["weight"], st["bias"], rm, rv, *hyper), 3 * el),
+            "backward": (lambda: be.bn_ema_backward(gy, x, vectors), 4 * el),
+            "k5": (lambda: be.cuda_sums(gy, x, mean, inv), 2 * el),
+            "plain_forward": (lambda: be.apply_plain(
+                x, *be.finalize_plain(*be.stats_plain(x), m, rm, rv,
+                                      st["weight"], *hyper)[::2],
+                st["bias"]), None),
+            "plain_backward": (lambda: be.dx_plain(
+                gy, be.torch_sums(gy, x, mean, inv)[0], a), None),
+            "library_forward": (lib_fwd, None),
+            "library_backward": (lib_bwd, None),
+        }
+        row = dict(shape=[m, c], batchnorms=count)
+        for name, (fn, nbytes) in routes.items():
+            fn()
+            ms = cuda_median_ms(fn, runs=BN_EMA_ITERS, flush=flush)
+            row[f"{name}_ms"] = ms
+            total[f"{name}_ms"] = total.get(f"{name}_ms", 0.0) + count * ms
+            if nbytes:
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                row[f"{name}_bound_ms"] = bound
+                total[f"{name}_bound_ms"] = (total.get(f"{name}_bound_ms", 0.0)
+                                             + count * bound)
+        shapes.append(row)
+        del x, gy
+    total["ms"] = total["forward_ms"] + total["backward_ms"]
+    total["bound_ms"] = total["forward_bound_ms"] + total["backward_bound_ms"]
+    total["plain_ms"] = total["plain_forward_ms"] + total["plain_backward_ms"]
+    total["library_ms"] = (total["library_forward_ms"]
+                           + total["library_backward_ms"])
+    emit(phase="bn_ema_timing", model=model, iters=BN_EMA_ITERS,
+         shapes=shapes, step_sum=total, card=nvidia_smi_line())
+    return total
+
+
 def trace_probe_phase(steps=5, warmup=3):
     """The port's trace probe at its defaults (ResNet-50, batch 256, bf16,
     ``bn_subsample=8``, standard stem, the augmentation kernel in the
@@ -1309,13 +1461,28 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = prev
 
 
+@contextlib.contextmanager
+def eager_batchnorm():
+    """Every BatchNorm forward inside the block on the eager code, none on
+    the bn-ema kernels: for comparisons with a path that the kernels do not
+    take (remat, a process group), on the same BatchNorm code."""
+    from resnet_tpu_torch.models.resnet import BatchNorm
+    prev = BatchNorm._takes_kernels
+    BatchNorm._takes_kernels = lambda self, x: False
+    try:
+        yield
+    finally:
+        BatchNorm._takes_kernels = prev
+
+
 def remat_reference_phase():
     """ResNet-50 with remat: one float32 step on the card against the CPU
     path (``reference_check``), then on the card against the same step
     without remat from the same weights and rows: the update (hence the
     gradient) equal, and the running statistics bit-equal, refreshed once
-    (twice would move them by another 10%)."""
-    with deterministic_cudnn():
+    (twice would move them by another 10%). Remat's BatchNorms run the
+    eager code, so both steps do (``eager_batchnorm``)."""
+    with deterministic_cudnn(), eager_batchnorm():
         states = {remat: reference_check(
             "remat_reference" if remat else "remat_reference_plain",
             remat=remat) for remat in (True, False)}
@@ -2286,7 +2453,10 @@ def dp_equivalence(cfg, group):
         return state
 
     prev = torch.are_deterministic_algorithms_enabled()
-    with deterministic_cudnn(), warnings.catch_warnings(record=True) as w:
+    # jit's BatchNorms reduce over the group on the eager code: the plain
+    # step runs the same code (``eager_batchnorm``)
+    with deterministic_cudnn(), warnings.catch_warnings(record=True) as w, \
+            (eager_batchnorm() if jit else contextlib.nullcontext()):
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
@@ -2882,6 +3052,11 @@ def main(argv=None):
     from resnet_tpu_torch.ops.fused_chain import \
         normalized_matmul_with_stats as k3
     from resnet_tpu_torch.ops.fused_convbn import matmul_with_stats as k2
+    from resnet_tpu_torch.ops import bn_ema as be
+    # the bn-ema kernels' wrappers: each launches once a BatchNorm a step on
+    # the bn-ema paths (53 BatchNorms in ResNet-50 and ResNeXt-50)
+    bn_kernels = (be.bn_ema_forward, be.bn_ema_backward)
+    bn_ema_step = {w: 53 for w in bn_kernels}
 
     def selected(phase):
         return not only or phase in only
@@ -2933,11 +3108,15 @@ def main(argv=None):
         k5_worst = check_k5()
     if on("reduce_probe"):
         k5_probe = reduce_probe_phase()
+    if on("bn_ema"):
+        bn_ema_worst = check_bn_ema()
+        bn_ema_time = bn_ema_timing()
     if on("rotate_check"):
         rotate_check_phase(cfg)
     main_img_s = None
     if on("main"):
-        main_l, main_img_s, _ = train_path("main_path", cfg, 3, {k1: 1},
+        main_l, main_img_s, _ = train_path("main_path", cfg, 3,
+                                           {k1: 1, **bn_ema_step},
                                            eval_after=True)
     if on("chain"):
         chain_l, _, _ = train_path("chain_path", chain, 3, {
@@ -2946,14 +3125,14 @@ def main(argv=None):
     if on("fused"):
         fused_l, _, _ = train_path("fused_path", fused, 3, {k1: 1, k2: 36})
     if on("fullbatch"):
-        train_path("fullbatch_path", full, 2, {k1: 1})
+        train_path("fullbatch_path", full, 2, {k1: 1}, absent=bn_kernels)
     # the rest of the model family: ResNeXt-50 32x4d at the preset (the
     # grouped 3x3s block-diagonal, two groups a block) and through cuDNN's
     # grouped convolution, CIFAR ResNet-18 (no kernel), the
     # imagenet_resnet152_dp share at DP_DEPTH with and without remat
     if on("resnext"):
         resnext_l, _, _ = train_path("resnext_path", resnext_cfg(), 3,
-                                     {k1: 1}, eval_after=True,
+                                     {k1: 1, **bn_ema_step}, eval_after=True,
                                      model="resnext50_32x4d",
                                      grouped_dense=True, grouped_merge=2)
     if on("resnext_grouped"):
@@ -3135,7 +3314,30 @@ def main(argv=None):
                  launches=k5_probe["launches"], max_abs_err=k5_worst,
                  ms=k5_probe["ms"], plain_ms=k5_probe["plain_ms"],
                  bound_ms=k5_probe["bound_ms"], bound_by="bytes",
-                 library_ms=k5_probe["library_ms"]),
+                 library_ms=k5_probe["library_ms"],
+                 main_path_launches=main_l[be.bn_ema_backward],
+                 resnext_path_launches=resnext_l[be.bn_ema_backward]),
+            # the bn-ema BatchNorm's kernels (K5 among them, as its
+            # backward's sums), which replace no TPU kernel: ms, bound_ms,
+            # plain_ms (the plain versions) and library_ms (aten's
+            # native_batch_norm and its backward, full-batch BatchNorm, a
+            # yardstick the port never calls) summed over the 53
+            # BatchNorms of a ResNet-50 step at batch 256, bf16, forward
+            # and backward launches together; launches: the forward's on
+            # main_path, 53 a step
+            dict(name="bn_ema_forward+bn_ema_backward", route="cuda",
+                 source="resnet_tpu_torch/csrc/bn_sums.cu", replaces=None,
+                 launches=main_l[be.bn_ema_forward],
+                 max_abs_err=bn_ema_worst, ms=bn_ema_time["ms"],
+                 plain_ms=bn_ema_time["plain_ms"],
+                 bound_ms=bn_ema_time["bound_ms"], bound_by="bytes",
+                 library_ms=bn_ema_time["library_ms"],
+                 forward_ms=bn_ema_time["forward_ms"],
+                 backward_ms=bn_ema_time["backward_ms"],
+                 main_path_launches={w.__name__: main_l[w]
+                                     for w in bn_kernels},
+                 resnext_path_launches={w.__name__: resnext_l[w]
+                                        for w in bn_kernels}),
         ]
         require(all(kern["launches"] > 0 for kern in kernels),
                 "a kernel of the paths was launched no time")

@@ -48,9 +48,14 @@ SIGNATURES = {
             [_P, _P, _P] + [_I] * 9 + [_F] * 6 + [_I] * 5 + [_P], _I),
     },
     "bn_sums": {
-        # gy, x, mean, inv, ps1, ps2; M, C, splits, rows_per_split, dtype;
-        # stream
-        "bn_sums_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        # gy, x, mean, inv, a, part, sums, dx; M, C, splits,
+        # rows_per_split, dtype; stream
+        "bn_sums_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
+        # x, part, running_mean, running_var, weight, bias, vectors, y; M,
+        # C, splits, rows_per_split, dtype; eps, momentum, keep_new, clamp,
+        # clamp2, clamp_minus_1; stream
+        "bn_sums_forward_launch": ([_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
+                                   _I),
     },
     "matmul_stats": {
         # x, wt, a, b, y, psum, psumsq; M, K, N, dtype, normalize, relu,

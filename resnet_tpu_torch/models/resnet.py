@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from resnet_tpu_torch.ops.bn_ema import BatchNormEmaTrain
 from resnet_tpu_torch.ops.pool import stem_max_pool
 from resnet_tpu_torch.parallel.dist import all_reduce_sum
 from resnet_tpu_torch.utils.profiler import region
@@ -236,6 +237,14 @@ class BatchNorm(nn.Module):
     While a profiler records, the forward runs inside the ``bn`` span and
     its backward inside ``bn.backward`` (``utils/profiler.py::region``).
 
+    Train-mode bn-ema over the whole batch (no ``subsample``,
+    ``stat_stride``, ``grouped``, ``group`` or remat) of a channels-last
+    input of the compute dtype with ``C % 8 == 0`` runs as
+    ``ops/bn_ema.py::BatchNormEmaTrain``: the hand-written kernels on the
+    card, their plain versions on the CPU; every other forward runs the
+    eager code. ``BatchNorm.fused_forwards`` and ``eager_forwards`` count
+    the forwards of this process by path.
+
     ``group`` (a ``torch.distributed`` process group whose ranks each hold
     a contiguous block of one global batch, rank order = batch order):
     train-mode statistics over the GLOBAL batch, every mode above as the
@@ -245,6 +254,9 @@ class BatchNorm(nn.Module):
     reduces too; a rank that holds none of the stat sample adds zeros.
     Without a group nothing changes.
     """
+
+    fused_forwards = 0
+    eager_forwards = 0
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 2e-5, ema: bool = False,
@@ -369,7 +381,28 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         return region("bn", self._forward, x)
 
+    def _takes_kernels(self, x) -> bool:
+        """Whether this forward runs the bn-ema kernels
+        (``ops/bn_ema.py``): train-mode bn-ema over the whole batch of one
+        process, outside remat, on an input of the compute dtype in
+        bfloat16 or float32, ``C % 8 == 0``, in channels-last memory (whose
+        bytes are its (N·H·W, C) rows)."""
+        return (self.training and self.ema and not self.grouped
+                and self.subsample == 1 and self.stat_stride == 1
+                and self.group is None and self.remat_pass is None
+                and x.dim() == 4 and x.shape[1] % 8 == 0
+                and x.dtype == self.dtype
+                and x.dtype in (torch.bfloat16, torch.float32)
+                and x.is_contiguous(memory_format=torch.channels_last))
+
     def _forward(self, x):
+        if self._takes_kernels(x):
+            BatchNorm.fused_forwards += 1
+            return BatchNormEmaTrain.apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, float(self.eps), float(self.momentum),
+                float(self.ema_clamp))
+        BatchNorm.eager_forwards += 1
         dims = (0, 2, 3)
         xf = x.float()
         sync = self.group is not None

@@ -1,8 +1,8 @@
 """Microbenchmark: the BatchNorm backward's sum pair per column,
 ``S1 = Σ gy`` and ``S2 = Σ gy·(x − mean)·inv``, as torch's eager
 reductions (``torch_sums``) against the hand-written CUDA kernel
-(``cuda_sums``, ``csrc/bn_sums.cu``), on ResNet-50's BN input shapes at
-batch 256. Port of ``tools/reduce_probe.py``.
+(``cuda_sums``, ``csrc/bn_sums.cu``, bound in ``ops/bn_ema.py``), on
+ResNet-50's BN input shapes at batch 256. Port of ``tools/reduce_probe.py``.
 
     python -m resnet_tpu_torch.tools.reduce_probe [--iters 30] [--check]
 
@@ -25,6 +25,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from resnet_tpu_torch.ops.bn_ema import cuda_sums, sum_splits, torch_sums
 from resnet_tpu_torch.utils.device import resolve_device
 from resnet_tpu_torch.utils.profiler import cuda_median_ms
 
@@ -39,26 +40,22 @@ SHAPES = [
     (12544, 512),
     (12544, 2048),
 ]
+# (M, C) -> the number of BatchNorms of that input shape in one train step
+# of each model at batch 256 (53 each), the bn-ema kernels' shapes on the
+# main path
+STEP_SHAPES = {
+    "resnet50": {(12544, 512): 5, (12544, 2048): 4, (50176, 256): 11,
+                 (50176, 512): 1, (50176, 1024): 7, (200704, 128): 7,
+                 (200704, 256): 1, (200704, 512): 5, (802816, 64): 6,
+                 (802816, 128): 1, (802816, 256): 4, (3211264, 64): 1},
+    "resnext50": {(12544, 1024): 5, (12544, 2048): 4, (50176, 512): 11,
+                  (50176, 1024): 8, (200704, 256): 7, (200704, 512): 6,
+                  (802816, 128): 6, (802816, 256): 5, (3211264, 64): 1},
+}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, data sheet
-# the kernel's geometry (csrc/bn_sums.cu): 256 threads a block, 8 columns a
-# thread; the wrapper splits the rows so that about TARGET_BLOCKS blocks
-# exist (4 for each of an H100's 132 SMs), each row lane walking at least
-# MIN_ROWS_PER_LANE rows
-BLOCK_THREADS, COLS = 256, 8
-TARGET_BLOCKS, MIN_ROWS_PER_LANE = 528, 8
 # |kernel - plain| <= SUM_TOL * Σ|terms| per column: float32 sums of up to
 # 802816 terms added in another order
 SUM_TOL = 1e-5
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-
-
-def torch_sums(gy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
-               inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel (the JAX tool's ``xla_sums``):
-    float32 ``(Σ gy, Σ gy·xhat)`` over the rows, ``xhat = (x-mean)·inv``."""
-    gy32 = gy.float()
-    xhat = (x.float() - mean) * inv
-    return gy32.sum(dim=0), (gy32 * xhat).sum(dim=0)
 
 
 def sum_bounds(gy, x, mean, inv) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,79 +65,6 @@ def sum_bounds(gy, x, mean, inv) -> Tuple[torch.Tensor, torch.Tensor]:
     xhat = (x.float() - mean) * inv
     return (SUM_TOL * gy32.abs().sum(dim=0),
             SUM_TOL * (gy32 * xhat).abs().sum(dim=0))
-
-
-def sum_splits(m: int, c: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the kernel for an (M, C) input."""
-    chunks = c // COLS
-    row_threads = min(chunks, BLOCK_THREADS)
-    lanes = BLOCK_THREADS // row_threads
-    col_blocks = -(-chunks // row_threads)
-    splits = max(1, min(-(-TARGET_BLOCKS // col_blocks),
-                        -(-m // (lanes * MIN_ROWS_PER_LANE))))
-    rows = -(-m // splits)
-    return -(-m // rows), rows
-
-
-def _check_args(gy, x, mean, inv) -> Tuple[int, int]:
-    if gy.ndim != 2 or tuple(x.shape) != tuple(gy.shape):
-        raise ValueError(f"gy and x must be one (M, C) shape, got "
-                         f"{tuple(gy.shape)} and {tuple(x.shape)}")
-    m, c = gy.shape
-    if gy.dtype not in _DTYPE_CODES or x.dtype != gy.dtype:
-        raise ValueError(f"the kernel takes bfloat16 or float32 gy and x of "
-                         f"one dtype, got {gy.dtype} and {x.dtype}")
-    if m < 1 or c < COLS or c % COLS:
-        raise ValueError(f"the kernel needs C to be a multiple of {COLS} "
-                         f"(16-byte chunks), got M={m} C={c}")
-    for name, t in (("gy", gy), ("x", x)):
-        if t.device != gy.device:
-            raise ValueError(f"{name} is on {t.device}, expected {gy.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    for name, v in (("mean", mean), ("inv", inv)):
-        if v.dtype != torch.float32 or tuple(v.shape) != (c,):
-            raise ValueError(f"{name} must be float32 ({c},), got "
-                             f"{v.dtype} {tuple(v.shape)}")
-        if v.device != gy.device or not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {gy.device}")
-    return m, c
-
-
-def cuda_sums(gy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
-              inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(S1, S2)``, two (C,) float32 vectors, by the K5 kernel; the
-    counterpart of the JAX tool's ``pallas_sums``. gy, x (M, C) in bfloat16
-    or float32; mean, inv (C,) float32.
-
-    On CPU tensors it runs ``torch_sums``; on CUDA tensors it launches the
-    kernel or raises (on a non-contiguous input, ``C % 8 != 0``, another
-    dtype, or a failed launch). ``cuda_sums.launches`` counts launches.
-    """
-    if gy.device.type == "cpu":
-        return torch_sums(gy, x, mean, inv)
-    if gy.device.type != "cuda":
-        raise ValueError(f"unsupported device {gy.device}")
-    m, c = _check_args(gy, x, mean, inv)
-    splits, rows = sum_splits(m, c)
-    part = torch.empty((2, splits, c), dtype=torch.float32, device=gy.device)
-    from resnet_tpu_torch._build import load_library
-    lib = load_library("bn_sums")
-    with torch.cuda.device(gy.device):
-        err = lib.bn_sums_launch(
-            gy.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), m, c, splits, rows,
-            _DTYPE_CODES[gy.dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bn_sums kernel launch failed: CUDA error {err}")
-    cuda_sums.launches += 1
-    s1, s2 = part.sum(dim=1)          # the splits, added in a fixed order
-    return s1, s2
-
-
-cuda_sums.launches = 0
 
 
 def probe(iters: int = 30, device=None) -> List[dict]:

@@ -34,27 +34,34 @@ MODES = {
     "ema_sub2": (2, False, 1, True, 1.0),
     "ema_sub4_clamp1.5": (4, False, 1, True, 1.5),
 }
+# bn-ema over the whole batch, which the kernels take
+KERNEL_MODES = {
+    "ema": (1, False, 1, True, 1.0),
+    "ema_clamp2": (1, False, 1, True, 2.0),
+    "ema_clamp0": (1, False, 1, True, 0.0),
+}
+MODES.update(KERNEL_MODES)
 
 
-def _pair(mode):
+def _pair(mode, c=4):
     sub, grouped, stride, ema, clamp = MODES[mode]
     jm = SubsampleBatchNorm(momentum=0.9, epsilon=EPS, subsample=sub,
                             grouped=grouped, stat_stride=stride,
                             ema_normalize=ema, ema_clamp=clamp)
-    bn = BatchNorm(4, momentum=0.9, eps=EPS, ema=ema, ema_clamp=clamp,
+    bn = BatchNorm(c, momentum=0.9, eps=EPS, ema=ema, ema_clamp=clamp,
                    subsample=sub, grouped=grouped, stat_stride=stride)
     return jm, bn
 
 
-def _data(n=8, seed=0):
+def _data(n=8, seed=0, c=4):
     rng = np.random.default_rng(seed)
     f32 = lambda a: np.asarray(a, np.float32)
-    x = f32(rng.normal(0.5, 2.0, (n, 4, 4, 4)))
-    cot = f32(rng.normal(0, 1, (n, 4, 4, 4)))
-    params = {"scale": f32(1 + 0.2 * rng.normal(size=4)),
-              "bias": f32(0.2 * rng.normal(size=4))}
-    stats = {"mean": f32(0.5 + 0.3 * rng.normal(size=4)),
-             "var": f32(4 * (np.abs(rng.normal(size=4)) + 0.5))}
+    x = f32(rng.normal(0.5, 2.0, (n, 4, 4, c)))
+    cot = f32(rng.normal(0, 1, (n, 4, 4, c)))
+    params = {"scale": f32(1 + 0.2 * rng.normal(size=c)),
+              "bias": f32(0.2 * rng.normal(size=c))}
+    stats = {"mean": f32(0.5 + 0.3 * rng.normal(size=c)),
+             "var": f32(4 * (np.abs(rng.normal(size=c)) + 0.5))}
     return x, cot, params, stats
 
 
@@ -71,10 +78,11 @@ def _close(got, want, name):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_train_mode_matches_subsample_batchnorm(mode):
-    x, cot, params, stats = _data()
-    jm, bn = _pair(mode)
+def _check_train_mode(mode, c=4):
+    """One train-mode forward and backward of the port's module and of
+    ``SubsampleBatchNorm`` on the same data; returns the port's module."""
+    x, cot, params, stats = _data(c=c)
+    jm, bn = _pair(mode, c)
 
     def loss_fn(xj, p):
         out, mut = jm.apply({"params": p, "batch_stats": stats}, xj,
@@ -96,6 +104,22 @@ def test_train_mode_matches_subsample_batchnorm(mode):
     _close(xt.grad.numpy(), gx, "grad x")
     _close(bn.weight.grad.numpy(), gp["scale"], "grad scale")
     _close(bn.bias.grad.numpy(), gp["bias"], "grad bias")
+    return bn
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_train_mode_matches_subsample_batchnorm(mode):
+    _check_train_mode(mode)
+
+
+@pytest.mark.parametrize("mode", list(KERNEL_MODES))
+def test_kernel_path_matches_subsample_batchnorm(mode):
+    """bn-ema over the whole batch at 8 channels: the NHWC input's NCHW
+    view is channels-last, so the module runs ``ops/bn_ema.py``'s function
+    (its plain versions on the CPU)."""
+    before = BatchNorm.fused_forwards
+    _check_train_mode(mode, c=8)
+    assert BatchNorm.fused_forwards == before + 1
 
 
 @pytest.mark.parametrize("mode", ["sub4", "grouped4", "stride2", "ema_sub2"])

@@ -643,6 +643,156 @@ def test_bn_sums_wrapper_rejects_bad_input(cuda):
         rp.cuda_sums(gy.half(), x.half(), mean, inv)
 
 
+# ---------------------------------------------------------------------------
+# the bn-ema BatchNorm's kernels (csrc/bn_sums.cu, ops/bn_ema.py)
+# ---------------------------------------------------------------------------
+
+def _bn_ema_shapes():
+    from resnet_tpu_torch.tools.reduce_probe import STEP_SHAPES
+    return sorted({s for shapes in STEP_SHAPES.values() for s in shapes})
+
+
+def _bn_ema_case(device, m, c, dtype, seed=0):
+    """x and gy (M, C) drawn on the card, and a BatchNorm's float32 state:
+    weight, bias and running statistics near the batch's."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
+    x = (0.3 + 1.5 * randn(m, c)).to(dtype)
+    gy = randn(m, c).to(dtype)
+    state = dict(weight=1 + 0.2 * randn(c), bias=0.2 * randn(c),
+                 running_mean=0.3 + 0.3 * randn(c),
+                 running_var=2.25 * (1 + 0.5 * randn(c).abs()))
+    return x, gy, state
+
+
+def _bn_ema_wrappers():
+    from resnet_tpu_torch.ops import bn_ema
+    return bn_ema.bn_ema_forward, bn_ema.bn_ema_backward, bn_ema.cuda_sums
+
+
+def _check_bn_ema_kernels(device, m, c, dtype, clamp):
+    """The forward's and the backward's kernels against their plain
+    versions on the card, the later ones given the kernels' own earlier
+    outputs. The statistics' vectors and running statistics within 1e-5 of
+    the plain finalize over the plain sums (float32 in another order, and
+    var = E[x²] - mean² of inputs whose mean is a fifth of their spread);
+    K5's sums within 2e-5 of the sum of their terms' magnitudes; y and dx,
+    computed from the same vectors, within one ulp of their dtype (one
+    rounding)."""
+    from resnet_tpu_torch.ops import bn_ema
+    x, gy, st = _bn_ema_case(device, m, c, dtype)
+    before = [f.launches for f in _bn_ema_wrappers()]
+    run = {k: {n: st[n].clone() for n in ("running_mean", "running_var")}
+           for k in ("kernel", "plain")}
+    fin = dict(eps=2e-5, momentum=0.9, clamp=clamp)
+    y, vectors = bn_ema.bn_ema_forward(x, st["weight"], st["bias"],
+                                       **run["kernel"], **fin)
+    want = bn_ema.finalize_plain(*bn_ema.stats_plain(x), m, **run["plain"],
+                                 weight=st["weight"], **fin)
+    for g, w in list(zip(vectors, want)) + [
+            (run["kernel"][n], run["plain"][n]) for n in run["kernel"]]:
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    mean, inv, a = vectors
+    _assert_elementwise(y, bn_ema.apply_plain(x, mean, a, st["bias"]), dtype)
+    dx, s1, s2 = bn_ema.bn_ema_backward(gy, x, vectors)
+    xf, gf = x.float(), gy.float()
+    xh = (xf - mean) * inv
+    for g, w, terms in zip((s1, s2), bn_ema.torch_sums(gy, x, mean, inv),
+                           (gf.abs().sum(0), (gf * xh).abs().sum(0))):
+        _assert_sums(g, w, terms)
+    _assert_elementwise(dx, bn_ema.dx_plain(gy, s1, a), dtype)
+    # K5's own wrapper: the same kernels, the same bits
+    assert all(torch.equal(g, w) for g, w in zip(
+        bn_ema.cuda_sums(gy, x, mean, inv), (s1, s2)))
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype
+    assert [f.launches - b for f, b in zip(_bn_ema_wrappers(), before)] \
+        == [1, 1, 1]
+
+
+@pytest.mark.parametrize("shape", _bn_ema_shapes(), ids=str)
+def test_bn_ema_kernels_match_plain_versions_at_the_step_shapes(cuda,
+                                                                shape):
+    """Every BatchNorm input shape of a ResNet-50 or ResNeXt-50 train step
+    at batch 256, bf16, the running statistics clipped (clamp 2)."""
+    _check_bn_ema_kernels(cuda, *shape, torch.bfloat16, 2.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clamp", [1.0, 0.0])
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=str)
+def test_bn_ema_kernels_match_plain_versions_at_edge_shapes(cuda, shape,
+                                                            clamp, dtype):
+    """K5's edge shapes (idle row lanes, ragged splits, two blocks across a
+    row) in both dtypes, clip at c = 1 and off."""
+    _check_bn_ema_kernels(cuda, *shape, dtype, clamp)
+
+
+def _bn_ema_module(device, c, dtype):
+    from resnet_tpu_torch.models.resnet import BatchNorm
+    bn = BatchNorm(c, ema=True, ema_clamp=2.0, dtype=dtype).to(device)
+    _, _, st = _bn_ema_case(device, 8, c, dtype, seed=3)
+    with torch.no_grad():
+        for name, v in st.items():
+            getattr(bn, name).copy_(v)
+    return bn.train()
+
+
+def test_bn_ema_module_gives_the_same_bits_twice(cuda):
+    """No atomics: a BatchNorm forward and backward at a step shape, run
+    twice from the same state, gives the same output, running statistics
+    and gradients, bit for bit."""
+    from resnet_tpu_torch.models.resnet import BatchNorm
+    x, gy, _ = _bn_ema_case(cuda, 200704, 256, torch.bfloat16, seed=4)
+    x = x.reshape(256, 28, 28, 256).permute(0, 3, 1, 2)
+    gy = gy.reshape(256, 28, 28, 256).permute(0, 3, 1, 2)
+    runs = []
+    for _ in range(2):
+        bn = _bn_ema_module(cuda, 256, torch.bfloat16)
+        xl = x.detach().requires_grad_()
+        before = BatchNorm.fused_forwards
+        y = bn(xl)
+        y.backward(gy)
+        assert BatchNorm.fused_forwards == before + 1
+        runs.append([y, xl.grad, bn.weight.grad, bn.bias.grad,
+                     bn.running_mean, bn.running_var])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_resnet50_train_step_runs_every_batchnorm_on_the_kernels(cuda):
+    """One bn-ema train step of the imagenet_resnet50 preset (bf16,
+    channels-last, 64x64): all 53 BatchNorms take the kernels, one forward
+    launch (statistics, finalize, apply) and one backward launch (K5, the
+    reduce, dx) each; an eval forward takes none of them."""
+    from resnet_tpu_torch.config import imagenet_resnet50
+    from resnet_tpu_torch.models.resnet import BatchNorm
+    from resnet_tpu_torch.ops.augment_fused import make_augment_fn
+    from resnet_tpu_torch.train.state import create_train_state
+    from resnet_tpu_torch.train.steps import make_train_step
+    cfg = imagenet_resnet50()
+    cfg.data.image_shape = (64, 64, 3)
+    state = create_train_state(cfg, device=cuda)
+    step = make_train_step(augment_fn=make_augment_fn(cfg),
+                           steps_per_dispatch=1)
+    batch = {"image": torch.randint(0, 256, (4, 72, 80, 3),
+                                    dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 1000, (4,), device=cuda)}
+    counts = lambda: (BatchNorm.fused_forwards, BatchNorm.eager_forwards,
+                      *[f.launches for f in _bn_ema_wrappers()])
+    before = counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [53, 0, 53, 53, 0]
+    assert torch.isfinite(m["loss_sum"])
+    model = state.model.eval()
+    before = counts()
+    with torch.no_grad():
+        model(torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                            device=cuda))
+    assert [a - b for a, b in zip(counts(), before)] == [0, 53, 0, 0, 0]
+
+
 def test_reduce_probe_check_prints_parity_ok(cuda, capsys):
     from resnet_tpu_torch.tools import reduce_probe as rp
     assert rp.main(["--check"]) == 0
@@ -836,10 +986,13 @@ def test_mask_pool_backward_matches_cpu(cuda):
 @pytest.mark.parametrize("remat", [dict(remat=True),
                                    dict(remat_policy="conv")],
                          ids=["remat", "policy_conv"])
-def test_remat_step_equals_the_plain_step(cuda, remat):
+def test_remat_step_equals_the_plain_step(cuda, remat, monkeypatch):
     """One bn-ema ResNeXt train step with remat against the same step
-    without: gradients equal, running statistics refreshed once."""
-    from resnet_tpu_torch.models.resnet import ResNet
+    without: gradients equal, running statistics refreshed once. Remat's
+    BatchNorms run the eager code, so both steps do: the bn-ema kernels
+    are switched off for the comparison."""
+    from resnet_tpu_torch.models.resnet import BatchNorm, ResNet
+    monkeypatch.setattr(BatchNorm, "_takes_kernels", lambda self, x: False)
     kw = dict(units=(1, 1, 1, 1), filters=(8, 16, 32, 64, 128),
               num_classes=10, bottleneck=True, cardinality=4,
               group_width=8, grouped_dense=True, grouped_merge=2,

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from resnet_tpu.utils.profiler import input_overhead as jax_input_overhead
+from resnet_tpu_torch.ops import bn_ema
 from resnet_tpu_torch.tools import reduce_probe as rp
 from resnet_tpu_torch.tools import trace_probe as tp
 from resnet_tpu_torch.utils import profiler
@@ -77,12 +78,12 @@ def test_sum_splits_cover_the_rows_with_blocks_for_every_sm(shape):
     m, c = shape
     splits, rows = rp.sum_splits(m, c)
     assert splits * rows >= m > (splits - 1) * rows
-    chunks = c // rp.COLS
-    row_threads = min(chunks, rp.BLOCK_THREADS)
+    chunks = c // bn_ema.COLS
+    row_threads = min(chunks, bn_ema.BLOCK_THREADS)
     blocks = splits * -(-chunks // row_threads)
-    lanes = rp.BLOCK_THREADS // row_threads
-    assert 2 * 132 <= blocks <= rp.TARGET_BLOCKS
-    assert rows >= lanes * rp.MIN_ROWS_PER_LANE
+    lanes = bn_ema.BLOCK_THREADS // row_threads
+    assert 2 * 132 <= blocks <= bn_ema.TARGET_BLOCKS
+    assert rows >= lanes * bn_ema.MIN_ROWS_PER_LANE
 
 
 def test_probes_raise_without_a_card():
